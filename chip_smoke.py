@@ -6,21 +6,34 @@
 Phases, each of which makes the script exit non-zero if it fails:
 
 1. The card's name and power limit (nvidia-smi).
-2. Build every CUDA kernel of the port from the sources in this checkout.
+2. Build every CUDA kernel of the port from the sources in this checkout
+   (one nvcc per library, started together).
 3. Kernel phase: each kernel at the main path's shapes (UNITER-base
-   attention: B 16, H 12, S 160, D 64), float32 and bfloat16, dropout rate 0
-   and 0.1, against its plain PyTorch version on the same inputs (TF32 off):
-   rate 0 within atol 1e-5 (float32) / 2e-2 (bfloat16); rate 0.1 with the
-   same values and exactly the same zero positions of the dropped
-   probabilities. Times by CUDA events: the kernel, its plain version, and
-   torch's scaled_dot_product_attention as a yardstick (never called by the
-   port), beside the least time the card could take (the bound).
-4. Slice phase: full-width UNITER-base inference through the port's CLI
-   (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset, with
-   the fused attention kernel, in float32, in bfloat16, and with the
-   pair-blocked kernel. Checks the CSVs and metrics JSON, the launch counts
-   (12 layers × eval batches), and one batch's float32 logits on the card
-   against the same model and batch on the CPU (plain versions) within 1e-4.
+   attention: B 16, H 12, S 160, D 64; the backward also at B 32, as
+   --fuse_accum gives it) and at ragged shapes, float32 and bfloat16,
+   dropout rate 0 and 0.1, against its plain PyTorch version on the same
+   inputs (TF32 off): the forward within atol 1e-5 (float32) / 2e-2
+   (bfloat16), the backward's dq, dk, dv within 1e-5 / 2e-2 of each one's
+   largest magnitude; under dropout exactly the zero positions of the plain
+   version (one-hot v windows reveal the forward's dropped probabilities,
+   one-hot dout windows the backward's through dv). Times by CUDA events:
+   the kernel, its plain version, and torch's scaled_dot_product_attention
+   (forward, or backward through autograd) as a yardstick the port never
+   calls, beside the least time the card could take (the bound).
+4. Inference phase: full-width UNITER-base inference through the port's CLI
+   (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
+   each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
+   the launch counts (12 layers × eval batches), and one batch's float32
+   logits on the card against the CPU (plain versions) within 1e-4.
+5. Train phase: full-width UNITER-base fine-tunes through the same CLI (the
+   README recipe with ``--num_folds 0``, 2 epochs, dropout 0.1): the
+   per-sample kernel in float32 and with ``--compute_bf16``, the
+   pair-blocked kernel with ``--fuse_accum`` in bfloat16 and float32.
+   Checks forward and backward launch counts against the micro-batches
+   stepped, finite losses, the best checkpoint, CSVs, metrics JSON, and
+   prints train memes/s per epoch. Then one fp32 micro-batch's loss and
+   gradients, card against CPU, within 1e-4; and where one train step's
+   time goes (wall against host issue, kernels by torch.profiler).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +41,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,8 +62,18 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 REPLACES = {
     "fused_attention": "meme_challenge_tpu/ops/attention.py:96",
     "fused_attention_blocked": "meme_challenge_tpu/ops/attention.py:265",
+    "fused_attention_bwd": "meme_challenge_tpu/ops/attention.py:114",
+    "fused_attention_blocked_bwd": "meme_challenge_tpu/ops/attention.py:288",
 }
-SOURCE = "meme_challenge_tpu_torch/ops/csrc/fused_attention.cu"
+SOURCE = {
+    "fused_attention": "meme_challenge_tpu_torch/ops/csrc/fused_attention.cu",
+    "fused_attention_blocked":
+        "meme_challenge_tpu_torch/ops/csrc/fused_attention.cu",
+    "fused_attention_bwd":
+        "meme_challenge_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+    "fused_attention_blocked_bwd":
+        "meme_challenge_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+}
 
 
 def fail(msg: str) -> None:
@@ -113,11 +137,23 @@ def attention_bound_ms(dtype: str) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_inputs(torch, dtype, gen):
+def attention_bwd_bound_ms(dtype: str, batch: int) -> tuple:
+    """Least time for one backward: q, k, v, dout read once, dq, dk, dv
+    written once, the fp32 key bias read once; five products (s, dp, dv, dq,
+    dk) of 2·S·S·D multiply-adds per pair."""
+    item = 4 if dtype == "float32" else 2
+    nbytes = 7 * batch * H * S * D * item + batch * S * 4
+    ops = 10 * batch * H * S * S * D
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_inputs(torch, dtype, gen, batch=B):
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda").to(dt)
-               for _ in range(3))
-    lens = torch.randint(20, S + 1, (B,), generator=gen, device="cuda")
+    q, k, v = (torch.randn(batch, H, S, D, generator=gen,
+                           device="cuda").to(dt) for _ in range(3))
+    lens = torch.randint(20, S + 1, (batch,), generator=gen, device="cuda")
     mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).float()
     bias = ((1.0 - mask) * -10000.0)[:, None, None, :].contiguous()
     return q, k, v, bias
@@ -158,6 +194,144 @@ def ragged_checks(torch, A, gen) -> None:
     torch.cuda.synchronize()
     log("kernel shapes %s: both kernels, fp32 and bf16, rate 0 and 0.1, "
         "agree with their plain versions" % (RAGGED,))
+
+
+def _rel_err(torch, got, ref) -> tuple:
+    """(max |got − ref| over dq, dk, dv, max of that relative to each
+    reference's largest magnitude)."""
+    abs_err = rel = 0.0
+    for a, b in zip(got, ref):
+        e = (a.float() - b.float()).abs().max().item()
+        abs_err = max(abs_err, e)
+        rel = max(rel, e / max(b.float().abs().max().item(), 1e-30))
+    return abs_err, rel
+
+
+def _bwd_kernels(A):
+    """(name, forward wrapper, seed_group, seed count) of both backward
+    kernels for a [b, h, ...] input."""
+    return (("fused_attention_bwd", A.fused_attention, lambda b, h: h,
+             lambda b, h: b),
+            ("fused_attention_blocked_bwd", A.fused_attention_blocked,
+             lambda b, h: A._largest_block(b * h), A.blocked_seed_count))
+
+
+def kernel_grads(torch, fwd, q, k, v, bias, do, scale, rate, seeds):
+    """dq, dk, dv through the wrapper's autograd backward (the kernel)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fwd(*leaves, bias, scale, rate, seeds)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def bwd_ragged_checks(torch, A, gen) -> None:
+    """Both backward kernels at RAGGED shapes against the plain backward."""
+    for shape in RAGGED:
+        b, h, s, d = shape
+        for name, fwd, group, n_seeds in _bwd_kernels(A):
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                q, k, v, do = (torch.randn(shape, generator=gen,
+                                           device="cuda").to(dt)
+                               for _ in range(4))
+                lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                     device="cuda")
+                bias = ((torch.arange(s, device="cuda")[None] >= lens[:, None])
+                        .float() * -10000.0)[:, None, None, :].contiguous()
+                seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds(b, h),),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32)
+                for rate in (0.0, 0.1):
+                    got = kernel_grads(torch, fwd, q, k, v, bias, do,
+                                       d ** -0.5, rate, seeds)
+                    ref = A.fused_attention_bwd_plain(
+                        q, k, v, bias, do, d ** -0.5, rate, seeds,
+                        group(b, h))
+                    _, rel = _rel_err(torch, got, ref)
+                    if not rel <= TOL[dtype]:
+                        fail("kernel %s %s at %s rate %g: relative error %.3g"
+                             % (name, dtype, shape, rate, rel))
+    torch.cuda.synchronize()
+    log("kernel shapes %s: both backward kernels, fp32 and bf16, rate 0 and "
+        "0.1, agree with the plain backward" % (RAGGED,))
+
+
+def bwd_kernel_phase(torch, A, gen) -> dict:
+    """Both backward kernels at the main path's shapes (B 16, and B 32 as
+    --fuse_accum gives them), fp32 and bf16, rate 0 and 0.1 with the same
+    seeds: dq, dk, dv within TOL of the plain backward relative to each
+    one's largest magnitude, and under dropout exactly the zeros of the
+    plain backward's dv for one-hot dout windows (dv[j, d] = pd[c + d, j]).
+    Times at B 16: the backward kernels (through the autograd backward), the
+    plain backward, and torch's scaled_dot_product_attention backward with
+    the same mask at rate 0 (a yardstick the port never calls)."""
+    bwd_ragged_checks(torch, A, gen)
+    scale, rate = 1.0 / D ** 0.5, 0.1
+    results = {}
+    for name, fwd, group, n_seeds in _bwd_kernels(A):
+        for dtype in ("float32", "bfloat16"):
+            abs_err, rel_err = 0.0, 0.0
+            for batch in (B, 2 * B):
+                q, k, v, bias = attention_inputs(torch, dtype, gen, batch)
+                do = torch.randn(q.shape, generator=gen,
+                                 device="cuda").to(q.dtype)
+                seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds(batch, H),),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32)
+                sg = group(batch, H)
+                for r in (0.0, rate):
+                    got = kernel_grads(torch, fwd, q, k, v, bias, do, scale,
+                                       r, seeds)
+                    ref = A.fused_attention_bwd_plain(q, k, v, bias, do,
+                                                      scale, r, seeds, sg)
+                    e_abs, e_rel = _rel_err(torch, got, ref)
+                    abs_err, rel_err = max(abs_err, e_abs), max(rel_err,
+                                                                e_rel)
+                zeros_equal, dropped, total = True, 0, 0
+                for c in (0, 64, 96):
+                    probe = torch.zeros_like(do)
+                    d_idx = torch.arange(D, device="cuda")
+                    probe[:, :, c + d_idx, d_idx] = 1
+                    zk = kernel_grads(torch, fwd, q, k, v, bias, probe,
+                                      scale, rate, seeds)[2] == 0
+                    zp = A.fused_attention_bwd_plain(
+                        q, k, v, bias, probe, scale, rate, seeds, sg)[2] == 0
+                    zeros_equal &= bool(torch.equal(zk, zp))
+                    kept = A.fused_attention_bwd_plain(
+                        q, k, v, bias, probe, scale, 0.0, seeds, sg)[2] != 0
+                    dropped += int((zk & kept).sum())
+                    total += int(kept.sum())
+                torch.cuda.synchronize()
+                log("kernel %s %s B %d: relative error %.3g (tol %g), "
+                    "zero_positions_equal=%s dropped_share=%.4f"
+                    % (name, dtype, batch, rel_err, TOL[dtype], zeros_equal,
+                       dropped / max(total, 1)))
+                if not (rel_err <= TOL[dtype] and zeros_equal):
+                    fail("kernel %s %s disagrees with the plain backward"
+                         % (name, dtype))
+            # times at B 16, rate 0
+            q, k, v, bias = attention_inputs(torch, dtype, gen)
+            do = torch.randn(q.shape, generator=gen,
+                             device="cuda").to(q.dtype)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fwd(*leaves, bias, scale)
+            ms, host_ms = device_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True))
+            plain_ms, _ = device_ms(lambda: A.fused_attention_bwd_plain(
+                q, k, v, bias, do, scale, 0.0, None, group(B, H)))
+            lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *lib_leaves, attn_mask=bias.to(q.dtype), scale=scale)
+            library_ms, _ = device_ms(lambda: torch.autograd.grad(
+                lib_out, lib_leaves, do, retain_graph=True))
+            bound_ms, bound_by = attention_bwd_bound_ms(dtype, B)
+            log("kernel %s %s: max_abs_err %.3g | ms=%.4f plain_ms=%.4f "
+                "library_ms=%.4f bound_ms=%.4f (%s) wrapper_host_ms=%.4f"
+                % (name, dtype, abs_err, ms, plain_ms, library_ms, bound_ms,
+                   bound_by, host_ms))
+            results[(name, dtype)] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return results
 
 
 def kernel_phase(torch) -> dict:
@@ -219,28 +393,38 @@ def kernel_phase(torch) -> dict:
             results[(name, dtype)] = dict(
                 max_abs_err=max(err0, err_d), ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    results.update(bwd_kernel_phase(torch, A, gen))
     return results
 
 
 class PassLog:
-    """Collects the trainer's per-pass inference records (memes, seconds)."""
+    """Collects the trainer's per-pass inference records (memes, seconds)
+    and per-epoch training records (memes, seconds)."""
 
     def __init__(self):
         import logging
 
-        self.passes = []
+        self.passes, self.epochs = [], []
         parent = self
 
         class Handler(logging.Handler):
             def emit(self, record):
-                if record.getMessage().startswith("inference pass"):
+                msg = record.getMessage()
+                if msg.startswith("inference pass"):
                     _, n, secs = record.args[:3]
                     parent.passes.append((int(n), float(secs)))
+                elif msg.startswith("train epoch"):
+                    _, n, secs = record.args[:3]
+                    parent.epochs.append((int(n), float(secs)))
 
         self.handler = Handler(level=logging.INFO)
         logger = logging.getLogger("meme_challenge_tpu_torch.train")
         logger.setLevel(logging.INFO)
         logger.addHandler(self.handler)
+
+    def clear(self):
+        self.passes.clear()
+        self.epochs.clear()
 
 
 def forward_breakdown(torch, model, batch, dtype: str) -> None:
@@ -291,9 +475,50 @@ def _n_lines(path: str) -> int:
         return sum(1 for line in f if line.strip())
 
 
-def slice_phase(torch, work: str) -> dict:
-    """Full-width UNITER-base inference through the port's CLI; returns
-    the launches of each (kernel, dtype) run."""
+def make_dataset(work: str) -> dict:
+    """The synthetic dataset of both CLI phases: img_dim 2048, up to 100
+    boxes; 128 train memes, which the confounder sampler (repeat 3) turns
+    into 144 a epoch, 9 micro-batches of 16: 5 optimizer steps with
+    accumulation 2, the last one padded; 40 memes in each dev set and 36 in
+    each test set."""
+    from meme_challenge_tpu_torch.utils.synthetic import make_synthetic_dataset
+
+    t0 = time.time()
+    synth = make_synthetic_dataset(os.path.join(work, "data"), n_train=128,
+                                   n_dev=40, n_test=36, img_dim=2048,
+                                   max_boxes=100, seed=0)
+    log("data: synthetic dataset (img_dim 2048, up to 100 boxes) in %.1f s"
+        % (time.time() - t0))
+    return synth
+
+
+def check_outputs(run_dir: str, ckpt_name: str, synth: dict) -> dict:
+    """The 4 CSVs with one probability in [0, 1] per meme, and the metrics
+    JSON with its dev, train and 4 test entries; returns the metrics."""
+    base = ckpt_name.rsplit(".", 1)[0]
+    for ds in ("dev_seen", "dev_unseen", "test_seen", "test_unseen"):
+        path = os.path.join(run_dir, "%s_%s_preds.csv" % (base, ds))
+        if not os.path.isfile(path):
+            fail("missing " + path)
+        with open(path) as f:
+            rows = [r.split(",") for r in f.read().split("\n")[1:] if r]
+        probs = [float(r[1]) for r in rows]
+        if len(rows) != _n_lines(synth[ds]) or not all(
+                0.0 <= p <= 1.0 for p in probs):
+            fail("bad predictions in " + path)
+    with open(os.path.join(run_dir, base + "_metrics.json")) as f:
+        metrics = json.load(f)
+    if set(metrics) != {"dev", "train", "test"} or set(
+            metrics["test"]) != {"dev_seen", "dev_unseen", "test_seen",
+                                 "test_unseen"}:
+        fail("unexpected metrics JSON: %s" % sorted(metrics))
+    return metrics
+
+
+def inference_phase(torch, work: str, synth: dict, passlog) -> None:
+    """Full-width UNITER-base inference through the port's CLI (--max_epoch
+    0 from a saved checkpoint), each kernel in both dtypes: launch counts,
+    CSVs, metrics JSON, and one batch's fp32 logits, card against CPU."""
     from meme_challenge_tpu_torch.core.config import UniterConfig
     from meme_challenge_tpu_torch.core.seeding import torch_generator
     from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
@@ -303,14 +528,7 @@ def slice_phase(torch, work: str) -> dict:
     from meme_challenge_tpu_torch.train import train_uniter
     from meme_challenge_tpu_torch.train.checkpoint import ModelSaver
     from meme_challenge_tpu_torch.train.steps import to_device
-    from meme_challenge_tpu_torch.utils.synthetic import make_synthetic_dataset
 
-    t0 = time.time()
-    synth = make_synthetic_dataset(os.path.join(work, "data"), n_train=16,
-                                   n_dev=40, n_test=36, img_dim=2048,
-                                   max_boxes=100, seed=0)
-    log("slice: synthetic dataset (img_dim 2048, up to 100 boxes) in %.1f s"
-        % (time.time() - t0))
     batch_size, layers = 16, UniterConfig().num_hidden_layers
     names = ("dev_seen", "test_seen", "test_unseen", "dev_seen", "dev_unseen")
     n_batches = sum(-(-_n_lines(synth[n]) // batch_size) for n in names)
@@ -321,15 +539,13 @@ def slice_phase(torch, work: str) -> dict:
     fused = UniterConfig(use_pallas_attention=True)
     model = init_meme_uniter(fused, 1, "cuda", torch_generator(0, "cuda"))
     ModelSaver(base_ckpt).save(model)
-    log("slice: UNITER-base MemeUniter (%.1f M parameters) saved"
+    log("inference: UNITER-base MemeUniter (%.1f M parameters) saved"
         % (sum(p.numel() for p in model.parameters()) / 1e6))
 
-    passlog = PassLog()
     runs = (("fused_attention", "float32", False),
             ("fused_attention", "bfloat16", False),
             ("fused_attention_blocked", "float32", True),
             ("fused_attention_blocked", "bfloat16", True))
-    launches = {}
     for name, dtype, blocked in runs:
         run_dir = os.path.join(work, "%s_%s" % (name, dtype))
         os.makedirs(run_dir)
@@ -346,7 +562,7 @@ def slice_phase(torch, work: str) -> dict:
                 "--uniter_config", cfg_path]
         if dtype == "bfloat16":
             argv.append("--compute_bf16")
-        passlog.passes.clear()
+        passlog.clear()
         for key in A.LAUNCHES:
             A.LAUNCHES[key] = 0
         t0 = time.time()
@@ -354,15 +570,14 @@ def slice_phase(torch, work: str) -> dict:
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = dict(A.LAUNCHES)
-        launches[(name, dtype)] = counts[name]
         expected = layers * n_batches
         others = sum(v for k, v in counts.items() if k != name)
         memes = sum(n for n, _ in passlog.passes)
         secs = sum(s for _, s in passlog.passes)
         warm = passlog.passes[1:]
-        log("slice %s %s: CLI %.1f s, launches %d (expected %d = %d layers x "
-            "%d eval batches), inference %d memes in %.4f s = %.1f memes/s "
-            "(after the first pass: %.1f memes/s)"
+        log("inference %s %s: CLI %.1f s, launches %d (expected %d = %d "
+            "layers x %d eval batches), inference %d memes in %.4f s = %.1f "
+            "memes/s (after the first pass: %.1f memes/s)"
             % (name, dtype, wall, counts[name], expected, layers, n_batches,
                memes, secs, memes / secs,
                sum(n for n, _ in warm) / sum(s for _, s in warm)))
@@ -372,24 +587,8 @@ def slice_phase(torch, work: str) -> dict:
         if memes != n_memes:
             fail("inference passes covered %d memes, expected %d"
                  % (memes, n_memes))
-        base = ckpt_name.rsplit(".", 1)[0]
-        for ds in ("dev_seen", "dev_unseen", "test_seen", "test_unseen"):
-            path = os.path.join(run_dir, "%s_%s_preds.csv" % (base, ds))
-            if not os.path.isfile(path):
-                fail("missing " + path)
-            with open(path) as f:
-                rows = [r.split(",") for r in f.read().split("\n")[1:] if r]
-            probs = [float(r[1]) for r in rows]
-            if len(rows) != _n_lines(synth[ds]) or not all(
-                    0.0 <= p <= 1.0 for p in probs):
-                fail("bad predictions in " + path)
-        with open(os.path.join(run_dir, base + "_metrics.json")) as f:
-            metrics = json.load(f)
-        if set(metrics) != {"dev", "train", "test"} or set(
-                metrics["test"]) != {"dev_seen", "dev_unseen", "test_seen",
-                                     "test_unseen"}:
-            fail("unexpected metrics JSON: %s" % sorted(metrics))
-        log("slice %s %s: 4 CSVs + metrics JSON, dev_seen AUROC %.4f"
+        metrics = check_outputs(run_dir, ckpt_name, synth)
+        log("inference %s %s: 4 CSVs + metrics JSON, dev_seen AUROC %.4f"
             % (name, dtype, metrics["test"]["dev_seen"]["aucroc"]))
 
     # one batch's float32 logits: card (kernel) against CPU (plain version)
@@ -413,12 +612,274 @@ def slice_phase(torch, work: str) -> dict:
             del m_bf16
         del m
     err = (logits["cuda"] - logits["cpu"]).abs().max().item()
-    log("slice: float32 logits of one batch of %d, card vs CPU: max_abs_err "
-        "%.3g (tol %g), finite=%s" % (batch_size, err, LOGIT_TOL,
-                                     bool(torch.isfinite(logits["cuda"]).all())))
-    if not (err <= LOGIT_TOL and torch.isfinite(logits["cuda"]).all()):
+    finite = bool(torch.isfinite(logits["cuda"]).all())
+    log("inference: float32 logits of one batch of %d, card vs CPU: "
+        "max_abs_err %.3g (tol %g), finite=%s" % (batch_size, err, LOGIT_TOL,
+                                                 finite))
+    if not (err <= LOGIT_TOL and finite):
         fail("card logits disagree with the CPU's")
+
+
+# (kernel, dtype, pallas_blocked, --fuse_accum): every kernel in both dtypes
+TRAIN_RUNS = (("fused_attention", "float32", False, False),
+              ("fused_attention", "bfloat16", False, False),
+              ("fused_attention_blocked", "bfloat16", True, True),
+              ("fused_attention_blocked", "float32", True, True))
+TRAIN_ACCUM = 2
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def train_phase(torch, work: str, synth: dict, passlog) -> dict:
+    """Full-width UNITER-base fine-tunes through the port's CLI (the README
+    recipe with --num_folds 0, 2 epochs, dropout 0.1 / 0.1 as
+    configs/uniter-base.json, random weights from seed 42): the per-sample
+    kernel in fp32 and with --compute_bf16, the pair-blocked kernel with
+    --fuse_accum in bf16 and fp32. Checks the forward and backward launch
+    counts against the micro-batches each run stepped, finite losses, the
+    best checkpoint, the CSVs and the metrics JSON; returns the launches of
+    each (kernel, dtype)."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.ops import attention as A
+    from meme_challenge_tpu_torch.train import train_uniter
+
+    batch_size, layers = 16, UniterConfig().num_hidden_layers
+    launches = {}
+    for name, dtype, blocked, fuse in TRAIN_RUNS:
+        tag = "%s %s%s" % (name, dtype, " fuse_accum" if fuse else "")
+        run_dir = os.path.join(work, "train_%s_%s" % (name, dtype))
+        os.makedirs(run_dir)
+        cfg_path = os.path.join(run_dir, "uniter.json")
+        with open(cfg_path, "w") as f:
+            json.dump(UniterConfig(use_pallas_attention=True,
+                                   pallas_blocked=blocked).to_dict(), f)
+        ckpt_name = "finetune.ckpt"
+        vis = os.path.join(run_dir, "vis")
+        argv = ["--data_path", synth["root"],
+                "--feature_path", synth["feature_dir"],
+                "--vocab_file", synth["vocab"], "--model_path", run_dir,
+                "--model_save_name", ckpt_name, "--uniter_config", cfg_path,
+                "--max_epoch", "2", "--num_folds", "0",
+                "--batch_size", str(batch_size),
+                "--gradient_accumulation", str(TRAIN_ACCUM),
+                "--confounder_repeat", "3", "--pos_wt", "1.8",
+                "--scheduler", "warmup_cosine", "--warmup_steps", "2",
+                "--lr", "3e-5", "--vis_path", vis]
+        if dtype == "bfloat16":
+            argv.append("--compute_bf16")
+        if fuse:
+            argv.append("--fuse_accum")
+        passlog.clear()
+        for key in A.LAUNCHES:
+            A.LAUNCHES[key] = 0
+        t0 = time.time()
+        train_uniter.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(A.LAUNCHES)
+        bwd = name + "_bwd"
+        launches[(name, dtype)], launches[(bwd, dtype)] = (counts[name],
+                                                           counts[bwd])
+        # every micro-batch of an epoch is stepped, the short last group
+        # padded to TRAIN_ACCUM; --fuse_accum runs one forward per group
+        groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
+                     for n, _ in passlog.epochs)
+        train_fwd = groups * (1 if fuse else TRAIN_ACCUM)
+        eval_batches = sum(_ceil(n, batch_size) for n, _ in passlog.passes)
+        want = {name: layers * (train_fwd + eval_batches),
+                bwd: layers * train_fwd}
+        log("train %s: CLI %.1f s, %d epochs; launches forward %d (expected "
+            "%d = %d layers x (%d train + %d eval forwards)), backward %d "
+            "(expected %d)" % (tag, wall, len(passlog.epochs), counts[name],
+                               want[name], layers, train_fwd, eval_batches,
+                               counts[bwd], want[bwd]))
+        for i, (n, secs) in enumerate(passlog.epochs, 1):
+            log("train %s: epoch %d, %d memes in %.4f s = %.1f memes/s"
+                % (tag, i, n, secs, n / secs))
+        if len(passlog.epochs) != 2 or any(
+                counts[k] != want.get(k, 0) for k in counts):
+            fail("train %s: launch counts %s, expected %s, epochs %s"
+                 % (tag, counts, want, passlog.epochs))
+        with open(os.path.join(vis, "finetune", "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        losses = [r["value"] for r in scalars
+                  if r["name"] == "Train/Epoch_Loss"]
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            fail("train %s: epoch losses %s" % (tag, losses))
+        if not os.path.isfile(os.path.join(run_dir, ckpt_name)):
+            fail("train %s: no best checkpoint" % tag)
+        metrics = check_outputs(run_dir, ckpt_name, synth)
+        log("train %s: epoch losses %s, best checkpoint, 4 CSVs + metrics "
+            "JSON, dev AUROC %.4f" % (tag, ["%.4f" % x for x in losses],
+                                      metrics["dev"]["aucroc"]))
     return launches
+
+
+GRAD_TOL = 1e-4
+
+
+def grad_check(torch, synth: dict) -> None:
+    """One micro-batch of 16 (the last sample masked out), fp32, dropout
+    off, the same weights: the bce_logits loss (pos_wt 1.8) and every
+    parameter's gradient on the card (kernels) against the CPU (plain
+    versions), within GRAD_TOL of each gradient's largest magnitude. A
+    gradient that is zero up to rounding (the key bias: softmax ignores a
+    shift of a whole score row) is held to GRAD_TOL of a thousandth of the
+    model's largest gradient instead."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.train.losses import bce_logits_loss
+    from meme_challenge_tpu_torch.train.steps import (
+        MODEL_INPUT_KEYS,
+        TRAIN_KEYS,
+        to_device,
+    )
+
+    ds = MemeDataset(synth["train"], feature_dir=synth["feature_dir"],
+                     tokenizer=BertTokenizer(synth["vocab"]), max_txt_len=60,
+                     max_bb=100, img_dim=2048)
+    batch = ds.batch(list(range(16)))
+    batch["sample_mask"] = (torch.arange(16) < 15).int().numpy()
+    cfg = UniterConfig(use_pallas_attention=True, hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    cpu = init_meme_uniter(cfg, 1, "cpu", torch_generator(3, "cpu"))
+    card = init_meme_uniter(cfg, 1, "cuda", torch_generator(3, "cuda"))
+    card.load_state_dict(cpu.state_dict())
+    out = {}
+    for device, model in (("cuda", card), ("cpu", cpu)):
+        b = to_device(batch, device, keys=MODEL_INPUT_KEYS + TRAIN_KEYS)
+        logits = model(b, deterministic=False)
+        loss, _ = bce_logits_loss(logits, b["labels"], b["sample_mask"], 1.8)
+        loss.backward()
+        out[device] = (loss.item(), {n: p.grad.float().cpu()
+                                     for n, p in model.named_parameters()
+                                     if p.grad is not None})
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    if set(g_card) != set(g_cpu):
+        fail("gradients reach other parameters on the card and the CPU")
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for n, g in g_cpu.items():
+        scale = max(float(g.abs().max()), 1e-3 * top)
+        rel = float((g_card[n] - g).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, n
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    log("grad: one fp32 micro-batch of 16, dropout off, card vs CPU: loss "
+        "%.6f vs %.6f (relative %.3g); %d parameter gradients, worst %.3g of "
+        "the largest magnitude (%s; tol %g)"
+        % (l_card, l_cpu, loss_rel, len(g_cpu), worst, worst_name, GRAD_TOL))
+    if not (loss_rel <= GRAD_TOL and worst <= GRAD_TOL):
+        fail("card gradients disagree with the CPU's")
+
+
+def train_breakdown(torch, synth: dict, dtype: str) -> None:
+    """Where one optimizer step's time goes (informational): accumulation 2
+    × batch 16, Adam with bf16 moments (the TrainConfig defaults), dropout
+    on, per-sample kernel. Wall ms of the step against the host's ms to
+    issue it, and the device time by kernel from torch.profiler."""
+    from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+    from meme_challenge_tpu_torch.train.steps import (
+        MODEL_INPUT_KEYS,
+        TRAIN_KEYS,
+        create_train_state,
+        make_train_step,
+        stack_for_accum,
+        to_device,
+    )
+
+    ds = MemeDataset(synth["train"], feature_dir=synth["feature_dir"],
+                     tokenizer=BertTokenizer(synth["vocab"]), max_txt_len=60,
+                     max_bb=100, img_dim=2048)
+    micros = []
+    for a in range(TRAIN_ACCUM):
+        b = ds.batch(list(range(16 * a, 16 * a + 16)))
+        b["sample_mask"] = torch.ones(16, dtype=torch.int32).numpy()
+        b.pop("ids")
+        micros.append(b)
+    batch = to_device(stack_for_accum(micros), "cuda",
+                      keys=MODEL_INPUT_KEYS + TRAIN_KEYS)
+    cfg = UniterConfig(use_pallas_attention=True)
+    if dtype == "bfloat16":
+        cfg = cfg.replace(dtype="bfloat16", attention_score_dtype="bfloat16",
+                          dropout_bits_dtype="uint8")
+    model = init_meme_uniter(cfg, 1, "cuda", torch_generator(0, "cuda"))
+    c = TrainConfig()
+    opt = Optimizer("adam", 3e-5, lambda step: 1.0, beta1=c.beta1,
+                    beta2=c.beta2, weight_decay=c.weight_decay,
+                    max_grad_norm=c.max_grad_norm, mu_dtype=c.adam_mu_dtype,
+                    nu_dtype=c.adam_nu_dtype)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, make_loss_fn("bce_logits", 1.8), opt,
+                           accum_steps=TRAIN_ACCUM)
+
+    def one():
+        step(state, batch, dropout_generator(0, state.step, "cuda"))
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    issue, wall = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall_ms, issue_ms = statistics.median(wall), statistics.median(issue)
+    log("breakdown train %s: one step (2 x 16 memes, forward, backward, "
+        "Adam): wall %.3f ms, host issue %.3f ms; %.1f memes/s at this rate"
+        % (dtype, wall_ms, issue_ms, 32 / wall_ms * 1e3))
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        n = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                one()
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3 / n
+        rows, host_rows, n_launch = [], [], 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                t = getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                rows.append((t / n / 1e3, e.key))
+            else:
+                host_rows.append((e.self_cpu_time_total / n / 1e3,
+                                  e.count // n, e.key))
+                if "LaunchKernel" in e.key:
+                    n_launch += e.count // n
+        rows.sort(reverse=True)
+        host_rows.sort(reverse=True)
+        busy = sum(t for t, _ in rows)
+        log("breakdown train %s: profiled step: wall %.3f ms, kernels %.3f "
+            "ms, device idle share %.3f, %d kernel launches; top kernels "
+            "(ms): %s" % (dtype, pwall, busy, 1.0 - busy / pwall, n_launch,
+                          "; ".join("%s %.3f" % (k[:48], t)
+                                    for t, k in rows[:8])))
+        log("breakdown train %s: host time by operator (self ms, calls per "
+            "step): %s" % (dtype, "; ".join(
+                "%s %.3f x%d" % (k[:40], t, c) for t, c, k in host_rows[:10])))
+    except Exception as e:  # informational: a missing trace fails nothing
+        log("breakdown train %s: profiler unavailable (%s)" % (dtype, e))
 
 
 def main(argv) -> None:
@@ -458,15 +919,21 @@ def main(argv) -> None:
     if "--kernels-only" in argv:
         return
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    passlog = PassLog()
     with tempfile.TemporaryDirectory(
             dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
-        launches = slice_phase(torch, work)
+        synth = make_dataset(work)
+        inference_phase(torch, work, synth, passlog)
+        launches = train_phase(torch, work, synth, passlog)
+        grad_check(torch, synth)
+        for dtype in ("float32", "bfloat16"):
+            train_breakdown(torch, synth, dtype)
 
     entries = []
     for (name, dtype), r in kernels.items():
         entries.append({
             "name": "%s[%s]" % (name, dtype), "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES[name],
+            "source": SOURCE[name], "replaces": REPLACES[name],
             "launches": launches[(name, dtype)],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,4 +1,4 @@
-"""UNITER single-stream vision+language encoder, inference parts, in PyTorch.
+"""UNITER single-stream vision+language encoder in PyTorch.
 
 Counterpart of ``meme_challenge_tpu/models/uniter.py`` (:45-524). The math
 follows the JAX modules step for step (dtype casts included), so logits agree
@@ -17,8 +17,15 @@ what ``meme_uniter_params_to_torch`` writes (the ``uniter_model.`` trunk, the
   storage with fp32 softmax math when ``attention_score_dtype`` is
   ``"bfloat16"``, and the plain fp32 path. The QKV, output and FFN products
   stay plain torch, as the JAX package left them to XLA.
-
-This slice is inference only: ``deterministic=False`` (dropout) raises.
+- Training (``deterministic=False``) applies dropout where the JAX package
+  does: flax-style Bernoulli dropout after the text and image embeddings,
+  and the encoder's integer-threshold dropout (``keep iff bits >= rate·2³²``,
+  or ``bits >= round(rate·256)`` with ``dropout_bits_dtype="uint8"``) on
+  the attention probabilities and before each residual. With the fused
+  kernel the attention dropout runs inside it, from int32 seeds drawn per
+  layer. Every random draw comes from the ``torch.Generator`` the caller
+  passes; the JAX PRNG streams are not reproduced, only their
+  distributions. ``remat`` in training is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from torch import nn
 
 from meme_challenge_tpu_torch.core.config import UniterConfig
 from meme_challenge_tpu_torch.ops.attention import (
+    blocked_seed_count,
     fused_attention,
     fused_attention_blocked,
 )
@@ -63,10 +71,64 @@ def compute_dtype(config: UniterConfig) -> torch.dtype:
     return _DTYPES[config.dtype]
 
 
+class _SoftmaxLowp(torch.autograd.Function):
+    """The JAX package's ``softmax_lowp`` custom VJP: the saved residual is
+    the low-precision p itself (not torch's fp32 softmax output), so ds is
+    computed from, and rounded to, the same values as in JAX."""
+
+    @staticmethod
+    def forward(ctx, scores):
+        p = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, = ctx.saved_tensors
+        p32, g32 = p.float(), g.float()
+        ds = p32 * (g32 - (g32 * p32).sum(dim=-1, keepdim=True))
+        return ds.to(p.dtype)
+
+
 def softmax_lowp(scores: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis with fp32 math and storage in the input's
-    (bf16) dtype — the forward of the JAX package's ``softmax_lowp``."""
-    return torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+    (bf16) dtype, differentiable as the JAX package's ``softmax_lowp``."""
+    return _SoftmaxLowp.apply(scores)
+
+
+def bernoulli_dropout(x: torch.Tensor, rate: float,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 − rate, kept values
+    divided by 1 − rate; identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, x.new_zeros(()))
+
+
+def threshold_dropout(x: torch.Tensor, rate: float,
+                      generator: Optional[torch.Generator],
+                      bits8: bool = False) -> torch.Tensor:
+    """The JAX encoder's integer-threshold dropout (models/uniter.py:284-302
+    there): uint32 words kept iff ``bits >= rate·2³²``, scaled by
+    1/(1 − rate); with ``bits8`` uint8 words kept iff ``bits >= k``,
+    ``k = round(rate·256)``, scaled by the exact effective rate,
+    1/(1 − k/256). Identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    if bits8:
+        k = min(int(round(rate * 256)), 255)
+        bits = torch.randint(0, 256, x.shape, generator=generator,
+                             device=x.device, dtype=torch.uint8)
+        eff = k / 256.0
+    else:
+        k = min(int(rate * (1 << 32)), (1 << 32) - 1)
+        bits = torch.randint(0, 1 << 32, x.shape, generator=generator,
+                             device=x.device, dtype=torch.int64)
+        eff = rate
+    return torch.where(bits >= k, x / (1.0 - eff), x.new_zeros(())).to(x.dtype)
 
 
 def _layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -100,7 +162,7 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
 
 
 class TextEmbeddings(nn.Module):
-    """word + position + token-type embeddings → LN.
+    """word + position + token-type embeddings → LN → dropout.
 
     Parity: reference UniterTextEmbeddings (model/model.py:217-245)."""
 
@@ -115,21 +177,22 @@ class TextEmbeddings(nn.Module):
         self.LayerNorm = LayerNorm(H, config.layer_norm_eps)
 
     def forward(self, input_ids: torch.Tensor, position_ids: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = (self.word_embeddings(input_ids.long())
              + self.position_embeddings(position_ids.long())
              + self.token_type_embeddings(token_type_ids.long()))
-        return self.LayerNorm(x, compute_dtype(self.config))
+        x = self.LayerNorm(x, compute_dtype(self.config))
+        return bernoulli_dropout(x, self.config.hidden_dropout_prob, generator)
 
     def type_embed(self, type_ids: torch.Tensor) -> torch.Tensor:
         return self.token_type_embeddings(type_ids.long())
 
 
 class ImageEmbeddings(nn.Module):
-    """img_linear(img_dim→H)+LN ⊕ pos_linear(7→H)+LN ⊕ type → LN.
+    """img_linear(img_dim→H)+LN ⊕ pos_linear(7→H)+LN ⊕ type → LN → dropout.
 
     Parity: reference UniterImageEmbeddings (model/model.py:248-272), incl.
     the MRFR mask embedding added to raw features (row 0 pinned to zeros).
@@ -149,7 +212,8 @@ class ImageEmbeddings(nn.Module):
 
     def forward(self, img_feat: torch.Tensor, img_pos_feat: torch.Tensor,
                 type_embeddings: torch.Tensor,
-                img_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+                img_masks: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if img_masks is not None:
             # Row 0 = "not masked" must contribute nothing; the reference
             # zeroes it in place each forward (model/model.py:261).
@@ -160,8 +224,9 @@ class ImageEmbeddings(nn.Module):
                                  torch.float32)
         pos = self.pos_layer_norm(self.pos_linear(img_pos_feat.float()),
                                   torch.float32)
-        return self.LayerNorm(im + pos + type_embeddings,
-                              compute_dtype(self.config))
+        x = self.LayerNorm(im + pos + type_embeddings,
+                           compute_dtype(self.config))
+        return bernoulli_dropout(x, self.config.hidden_dropout_prob, generator)
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -223,28 +288,50 @@ class StackedEncoder(nn.Module):
         self.layer = nn.ModuleList(
             [BertLayer(config) for _ in range(config.num_hidden_layers)])
 
-    def _attention(self, q, k, v, bias32, scale, dtype):
+    def _attention(self, q, k, v, bias32, scale, dtype, attn_rate,
+                   generator):
         cfg = self.config
+        bits8 = cfg.dropout_bits_dtype == "uint8"
         if cfg.use_pallas_attention:
-            kernel = (fused_attention_blocked if cfg.pallas_blocked
-                      else fused_attention)
+            if cfg.pallas_blocked:
+                kernel = fused_attention_blocked
+                n_seed = blocked_seed_count(q.shape[0], q.shape[1])
+            else:
+                kernel, n_seed = fused_attention, q.shape[0]
+            seeds = None
+            if attn_rate > 0.0:
+                seeds = torch.randint(0, 2 ** 31 - 1, (n_seed,),
+                                      generator=generator, device=q.device,
+                                      dtype=torch.int32)
             return kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                          bias32, scale).to(dtype)
+                          bias32, scale, attn_rate, seeds).to(dtype)
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         if cfg.attention_score_dtype == "bfloat16":
             # bf16 S^2 storage, softmax math in fp32 (softmax_lowp)
             probs = softmax_lowp((scores + bias32).to(torch.bfloat16))
         else:
             probs = torch.softmax(scores + bias32, dim=-1)
-        return torch.matmul(probs.to(dtype).float(), v.float()).to(dtype)
+        probs = threshold_dropout(probs.to(dtype), attn_rate, generator, bits8)
+        return torch.matmul(probs.float(), v.float()).to(dtype)
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
-                deterministic: bool = True) -> torch.Tensor:
-        if not deterministic:
-            raise NotImplementedError(
-                "dropout (training) comes with the training slice in "
-                "ROADMAP.md; this encoder runs inference only")
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
+        if not deterministic and cfg.remat:
+            raise NotImplementedError(
+                "remat=True in training is not ported yet (ROADMAP.md Queue "
+                "1: remat in training, which must replay each layer's "
+                "dropout generator state)")
+        p_attn = cfg.attention_probs_dropout_prob
+        p_hid = cfg.hidden_dropout_prob
+        use_dropout = (not deterministic) and (p_attn > 0 or p_hid > 0)
+        if use_dropout and generator is None:
+            raise ValueError("dropout (deterministic=False) draws from a "
+                             "torch.Generator; pass generator=")
+        gen = generator if use_dropout else None
+        attn_rate = p_attn if use_dropout else 0.0
+        bits8 = cfg.dropout_bits_dtype == "uint8"
         dtype = compute_dtype(cfg)
         n_heads = cfg.num_attention_heads
         scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -255,12 +342,17 @@ class StackedEncoder(nn.Module):
             sa = lp.attention.self
             q, k, v = (_split_heads(_linear(x, lin, dtype), n_heads)
                        for lin in (sa.query, sa.key, sa.value))
-            ctx = _merge_heads(self._attention(q, k, v, bias32, scale, dtype))
+            ctx = _merge_heads(self._attention(q, k, v, bias32, scale, dtype,
+                                               attn_rate, gen))
             ao = lp.attention.output
-            x = ao.LayerNorm(_linear(ctx, ao.dense, dtype) + x, dtype)
+            attn_out = threshold_dropout(_linear(ctx, ao.dense, dtype),
+                                         p_hid, gen, bits8)
+            x = ao.LayerNorm(attn_out + x, dtype)
             inter = act(_linear(x, lp.intermediate.dense, dtype))
             fo = lp.output
-            x = fo.LayerNorm(_linear(inter, fo.dense, dtype) + x, dtype)
+            ffn_out = threshold_dropout(_linear(inter, fo.dense, dtype),
+                                        p_hid, gen, bits8)
+            x = fo.LayerNorm(ffn_out + x, dtype)
         return x
 
 
@@ -302,8 +394,10 @@ class UniterModel(nn.Module):
     def forward(self, input_ids, position_ids, img_feat, img_pos_feat,
                 txt_mask=None, img_mask=None, img_masks=None,
                 txt_type_ids=None, img_type_ids=None,
-                deterministic: bool = True
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        gen = None if deterministic else generator
         if input_ids is None:
             # image-only branch (model/model.py:348-351)
             if img_type_ids is None:
@@ -311,24 +405,25 @@ class UniterModel(nn.Module):
                                           device=img_feat.device)
             emb = self.img_embeddings(img_feat, img_pos_feat,
                                       self.embeddings.type_embed(img_type_ids),
-                                      img_masks)
+                                      img_masks, gen)
             joint_mask = img_mask
         elif img_feat is None:
             # text-only branch (model/model.py:352-355)
-            emb = self.embeddings(input_ids, position_ids, txt_type_ids)
+            emb = self.embeddings(input_ids, position_ids, txt_type_ids, gen)
             joint_mask = txt_mask
         else:
-            txt_emb = self.embeddings(input_ids, position_ids, txt_type_ids)
+            txt_emb = self.embeddings(input_ids, position_ids, txt_type_ids,
+                                      gen)
             if img_type_ids is None:
                 img_type_ids = torch.ones(img_feat.shape[:2], dtype=torch.long,
                                           device=img_feat.device)
             img_emb = self.img_embeddings(
                 img_feat, img_pos_feat,
-                self.embeddings.type_embed(img_type_ids), img_masks)
+                self.embeddings.type_embed(img_type_ids), img_masks, gen)
             emb = torch.cat([txt_emb.to(img_emb.dtype), img_emb], dim=1)
             joint_mask = torch.cat([txt_mask, img_mask], dim=1)
         seq = self.encoder(emb, self._attn_bias(joint_mask),
-                           deterministic=deterministic)
+                           deterministic=deterministic, generator=gen)
         return seq, joint_mask
 
     def pool(self, sequence_output: torch.Tensor) -> torch.Tensor:
@@ -349,7 +444,10 @@ class MemeUniter(nn.Module):
         self.linear = nn.Linear(config.hidden_size, n_classes)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits ``[B, n_classes]``; ``deterministic=False`` trains with
+        dropout drawn from ``generator``."""
         seq, _ = self.uniter_model(
             input_ids=batch.get("input_ids"),
             position_ids=batch.get("position_ids"),
@@ -358,6 +456,7 @@ class MemeUniter(nn.Module):
             txt_mask=batch.get("txt_mask"),
             img_mask=batch.get("img_mask"),
             deterministic=deterministic,
+            generator=generator,
         )
         return self.linear(self.uniter_model.pool(seq))
 

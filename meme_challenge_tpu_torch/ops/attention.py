@@ -1,12 +1,15 @@
-"""Fused multi-head attention forward, ``dropout(softmax(q·kᵀ·scale + bias))·v``.
+"""Fused multi-head attention, ``dropout(softmax(q·kᵀ·scale + bias))·v``, and
+its gradient.
 
 Counterpart of ``meme_challenge_tpu/ops/attention.py``. The two Pallas
 forward kernels there (``_fwd_kernel``, one program per sample, and
 ``_blk_fwd_kernel``, ``_largest_block(B·H)`` (sample, head) pairs per grid
 step) become one hand-written CUDA kernel for Hopper,
-``csrc/fused_attention.cu``, in two seed modes. It keeps the scores, the
-probabilities and the dropout mask out of device memory, as the TPU kernels
-did.
+``csrc/fused_attention.cu``, in two seed modes; the two backward kernels
+(``_bwd_kernel``, ``_blk_bwd_kernel``) likewise become
+``csrc/fused_attention_bwd.cu``. Both keep the scores, the probabilities and
+the dropout mask out of device memory, as the TPU kernels did: the backward
+recomputes them.
 
 - :func:`fused_attention` and :func:`fused_attention_blocked` keep the JAX
   signatures and layouts: q/k/v ``[B, H, S, D]`` in float32 or bfloat16,
@@ -18,10 +21,13 @@ did.
 - Dropout bits are the JAX interpret-mode hash (:func:`_hash_bits`), so the
   masks of the kernel, the plain version and JAX on the CPU are equal bit
   for bit. The TPU's hardware PRNG stream is not reproduced.
-- There is no backward kernel yet: a CUDA input that requires grad raises
-  ``NotImplementedError``.
+- The custom-VJP rules (``_fwd_rule``/``_bwd_rule`` and the blocked pair)
+  become a ``torch.autograd.Function`` per wrapper. It saves q, k, v, the
+  bias rows and the seeds (never P or the mask); its backward launches the
+  backward kernel for CUDA tensors and :func:`fused_attention_bwd_plain` for
+  CPU tensors. The bias and the seeds get no gradient.
 
-``LAUNCHES`` counts the kernel launches of each wrapper.
+``LAUNCHES`` counts the kernel launches of each wrapper, forward and backward.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-LAUNCHES = {"fused_attention": 0, "fused_attention_blocked": 0}
+LAUNCHES = {"fused_attention": 0, "fused_attention_blocked": 0,
+            "fused_attention_bwd": 0, "fused_attention_blocked_bwd": 0}
 
 _MASK32 = 0xFFFFFFFF
 
@@ -168,11 +175,56 @@ def fused_attention_blocked_plain(q, k, v, bias, scale: float,
                             _seed_arg(B * H // blk, seeds, q.device), blk)
 
 
+def fused_attention_bwd_plain(q, k, v, bias, do, scale: float, rate: float,
+                              seeds, seed_group: int):
+    """Plain PyTorch backward of both kernels: (dq, dk, dv) for the incoming
+    gradient ``do``, step for step as ``_bwd_kernel`` with its rounding
+    points. ``seeds`` holds ``B·H // seed_group`` int32 seeds (read iff
+    ``rate > 0``); pair ``g`` draws from ``seeds[g // seed_group]``."""
+    B, H, S, D = q.shape
+    qf, kf, dof = q.float(), k.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = s + _bias_rows(bias, B, S)[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)               # pre-dropout probs
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    if rate > 0.0:
+        keep = _keep_mask((seed_group, S, S), rate,
+                          seeds[:B * H // seed_group].to(torch.int64))
+        keep = keep.reshape(B, H, S, S)
+        c, zero = _dropout_scale(rate), p.new_zeros(())
+        pd = torch.where(keep, p * c, zero)            # dropped probs
+        dp = torch.where(keep, dp * c, zero)           # chain rule
+    else:
+        pd = p
+    dv = torch.matmul(pd.to(do.dtype).float().transpose(-1, -2), dof)
+    # softmax VJP with respect to the pre-dropout p
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(q.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # --------------------------------------------------------------------------
 # CUDA kernel launch
 # --------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bwd_lib():
+    from meme_challenge_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("fused_attention_bwd")
+    if not getattr(lib, "typed", False):
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_attention_bwd.argtypes = [
+            i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f,
+            ctypes.c_uint, f, i, i, vp]
+        lib.fused_attention_bwd.restype = i
+        lib.typed = True
+    return lib
 
 
 def _lib():
@@ -192,15 +244,14 @@ def _lib():
     return lib
 
 
-def _launch(q, k, v, bias, scale, rate, seeds, seed_group):
-    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "fused attention has no backward kernel yet (the training "
-            "slice in ROADMAP.md); run the forward under torch.no_grad()")
+def _check(q, k, v, bias, extra=()):
+    """The kernels' contract: q, k, v (and ``extra`` named tensors) of one
+    [B, H, S, D] shape and dtype on one device, contiguous and aligned; bias
+    of B·S elements; S and D within the kernels' limits."""
     if q.dim() != 4:
         raise ValueError("q must be [B, H, S, D], got %s" % (tuple(q.shape),))
     B, H, S, D = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
         if t.device != q.device:
             raise ValueError("%s is on %s, q on %s" % (name, t.device,
                                                         q.device))
@@ -221,11 +272,15 @@ def _launch(q, k, v, bias, scale, rate, seeds, seed_group):
     if S > lib.max_s or D > lib.max_d or D % 4:
         raise ValueError("the kernel takes S <= %d and D <= %d, D a multiple "
                          "of 4; got S=%d, D=%d" % (lib.max_s, lib.max_d, S, D))
-    bias_rows = _bias_rows(bias, B, S).contiguous()
+    return lib
+
+
+def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group):
+    """Forward kernel on [B, H, S, D] CUDA tensors; ``bias_rows`` [B, S]
+    fp32, ``seeds`` int32 (read only with dropout on)."""
+    lib = _check(q, k, v, bias_rows)
+    B, H, S, D = q.shape
     dropout = rate > 0.0
-    # seeds are read only with dropout on
-    seeds = _seed_arg(B * H // seed_group, seeds, q.device) if dropout \
-        else None
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -241,30 +296,89 @@ def _launch(q, k, v, bias, scale, rate, seeds, seed_group):
     return out
 
 
-def _on_cpu(q) -> bool:
-    if q.device.type == "cpu":
-        return True
-    if q.device.type != "cuda":
+def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group):
+    """Backward kernels (two launches) on [B, H, S, D] CUDA tensors."""
+    _check(q, k, v, bias_rows, extra=(("do", do),))
+    B, H, S, D = q.shape
+    lib = _bwd_lib()
+    dropout = rate > 0.0
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((3, B * H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fused_attention_bwd(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias_rows.data_ptr(), seeds.data_ptr() if dropout else None,
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), B * H, H, S, D, float(scale), _threshold(rate),
+            _dropout_scale(rate) if dropout else 1.0, int(dropout),
+            seed_group, stream)
+    if err != 0:
+        raise RuntimeError("fused_attention_bwd launch failed: CUDA error %d"
+                           % err)
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Custom VJP of both wrappers (JAX ``_fwd_rule``/``_bwd_rule`` and
+    ``_blk_fwd_rule``/``_blk_bwd_rule``): CUDA tensors launch the kernels,
+    CPU tensors take the plain versions. ``name`` keys ``LAUNCHES``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_rows, seeds, scale, rate, seed_group,
+                name):
+        ctx.scale, ctx.rate, ctx.seed_group, ctx.name = (scale, rate,
+                                                         seed_group, name)
+        ctx.save_for_backward(q, k, v, bias_rows, seeds)
+        if q.device.type == "cpu":
+            return _attention_plain(q, k, v, bias_rows, scale, rate, seeds,
+                                    seed_group)
+        out = _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group)
+        LAUNCHES[name] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias_rows, seeds = ctx.saved_tensors
+        do = do.contiguous()
+        args = (ctx.scale, ctx.rate, seeds, ctx.seed_group)
+        if q.device.type == "cpu":
+            grads = fused_attention_bwd_plain(q, k, v, bias_rows, do, *args)
+        else:
+            grads = _launch_bwd(q, k, v, bias_rows, do, *args)
+            LAUNCHES[ctx.name + "_bwd"] += 1
+        return (*grads, None, None, None, None, None, None)
+
+
+def _apply(q, k, v, bias, scale, rate, seeds, seed_group, name):
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError("fused attention runs on cuda or cpu tensors, got %s"
                          % q.device)
-    return False
+    B, H, S = q.shape[:3]
+    if bias.numel() != B * S:
+        raise ValueError("bias must be [B, 1, 1, S], got %s"
+                         % (tuple(bias.shape),))
+    bias_rows = _bias_rows(bias, B, S).contiguous()
+    # seeds are read only with dropout on
+    seeds = (_seed_arg(B * H // seed_group, seeds, q.device) if rate > 0.0
+             else None)
+    return _FusedAttention.apply(q, k, v, bias_rows, seeds, float(scale),
+                                 float(rate), seed_group, name)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, scale: float,
                     dropout_rate: float = 0.0,
                     seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dropout(softmax(q·kᵀ·scale + bias))·v, per sample.
+    """dropout(softmax(q·kᵀ·scale + bias))·v, per sample; differentiable in
+    q, k and v.
 
     q/k/v: [B, H, S, D]; bias: [B, 1, 1, S] additive fp32 mask;
     seeds: [B] int32 per-sample seeds (read iff dropout_rate > 0).
     Returns [B, H, S, D] in q.dtype.
     """
-    if _on_cpu(q):
-        return fused_attention_plain(q, k, v, bias, scale, dropout_rate, seeds)
-    out = _launch(q, k, v, bias, scale, dropout_rate, seeds, q.shape[1])
-    LAUNCHES["fused_attention"] += 1
-    return out
+    return _apply(q, k, v, bias, scale, dropout_rate, seeds, q.shape[1],
+                  "fused_attention")
 
 
 def fused_attention_blocked(q: torch.Tensor, k: torch.Tensor,
@@ -275,10 +389,6 @@ def fused_attention_blocked(q: torch.Tensor, k: torch.Tensor,
     """Pair-blocked fused attention; same signature as
     :func:`fused_attention` except ``seeds`` is per block
     (``[blocked_seed_count(B, H)]`` int32)."""
-    if _on_cpu(q):
-        return fused_attention_blocked_plain(q, k, v, bias, scale,
-                                             dropout_rate, seeds)
-    blk = _largest_block(q.shape[0] * q.shape[1])
-    out = _launch(q, k, v, bias, scale, dropout_rate, seeds, blk)
-    LAUNCHES["fused_attention_blocked"] += 1
-    return out
+    return _apply(q, k, v, bias, scale, dropout_rate, seeds,
+                  _largest_block(q.shape[0] * q.shape[1]),
+                  "fused_attention_blocked")

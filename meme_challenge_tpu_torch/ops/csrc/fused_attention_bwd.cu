@@ -1,0 +1,477 @@
+// Fused attention backward for Hopper (sm_90a): dq, dk, dv of
+// out = dropout(softmax(q·kᵀ·scale + bias))·v, given dout.
+//
+// Replaces the two Pallas backward kernels of the JAX package:
+//   meme_challenge_tpu/ops/attention.py  _bwd_kernel      (per-sample grid, :114-155)
+//   meme_challenge_tpu/ops/attention.py  _blk_bwd_kernel  (pair-blocked grid, :288-323)
+// As in the forward (fused_attention.cu) both are one device body with one
+// integer, `seed_group`: pair g = b·H + h reads its bias row g / H, its seed
+// seeds[g / seed_group] and hashes index (g mod seed_group)·S² + i·S + j.
+// The mask depends only on (g, i, j), so it is regenerated bit for bit by
+// any tiling; neither P nor the mask is stored between forward and backward.
+//
+// Math, step for step as _bwd_kernel (same rounding points):
+//   s  = q·kᵀ·scale + bias, p = exp(s − max) / Σ exp(s − max)   (true division)
+//   dp = dout·vᵀ; with dropout pd = keep ? p·c : 0, dp = keep ? dp·c : 0
+//   dv = round_{dout}(pd)ᵀ·dout
+//   ds = round_{q}(p·(dp − Σⱼ dp·p))
+//   dq = ds·k·scale, dk = dsᵀ·q·scale; each output rounded to its input's type.
+//
+// Bound at the UNITER-base main path (B 16, H 12, S 160, D 64), from the data
+// sheet: q, k, v, dout read and dq, dk, dv written are 7 × 1.97 M elements
+// (55 MB fp32, 27.5 MB bf16); the five products are 3.15 GFLOP. fp32 on the
+// CUDA cores (67 TFLOP/s): ≈ 47 µs, bound by operations. bf16 (989 TFLOP/s,
+// 3.35 TB/s): ≈ 8.2 µs, bound by bytes.
+//
+// Design: fp32 math on the CUDA cores, as the forward (no TF32; tensor cores
+// are later work). dk and dv sum over every query row of a pair, and Hopper
+// blocks run in no order, so instead of the TPU's whole-sample VMEM block the
+// backward is two launches, with no atomics and a deterministic result:
+//   A. attn_bwd_dq_kernel: one block per (pair, tile of 32 query rows), 8 warps
+//      of 4 rows, laid out as the forward. It recomputes s and p (K staged),
+//      then dp (V staged in K's buffer, the dout tile in Q's), and writes
+//      three fp32 row statistics to a [3, G, S] workspace: the row max, the
+//      row sum of exp(s − max) and Δ = Σⱼ dp·p. ds goes to shared memory,
+//      K is staged once more, and dq = ds·K·scale.
+//   B. attn_bwd_dkv_kernel: one block per (pair, tile of 32 keys); each warp
+//      owns 4 keys. The K and V tiles stay in shared memory while the block
+//      walks the pair's query rows in chunks of 32 (Q and dout chunks staged).
+//      Lane i of a warp rebuilds s and dp for query i and the warp's keys,
+//      with the same dot order as A, and p from the saved max and sum with
+//      the same division, so p equals A's bit for bit; pd and ds go to
+//      shared memory, and dv += pdᵀ·dout, dk += dsᵀ·q accumulate in
+//      registers (lane owns output columns d, d + 32, ...).
+// The two launches do seven products where the TPU kernel did five (s and dp
+// are recomputed in B), 1.4× the minimal operations.
+// Shared memory at S 160, D 64, fp32 staging: A needs 72 KB (one of K, V at a
+// time, rows padded to D + 4 floats, the 32-row tile and the ds tile), as the
+// forward, so three blocks fit an SM's 228 KB; B needs 43 KB (K, V, Q and
+// dout tiles, pd and ds). Both are launched with __launch_bounds__(256, 2):
+// at most 128 registers a thread, two blocks (16 warps) per SM guaranteed.
+// Limits: S ≤ 256, D ≤ 128, D a multiple of 4 (A needs 184 KB at the limit).
+#include <math_constants.h>
+#include <stdint.h>
+
+#include "attention_common.cuh"
+
+namespace {
+
+using namespace attn;
+
+// acc[i][t] = Σ_d rows[r0 + i][d] · keys[lane + 32 t][d], d in order; rows
+// has stride D, keys stride kstride (D + 4: float4 reads by lanes of
+// different keys hit different banks). The forward's score loop.
+__device__ __forceinline__ void row_dots(float (&acc)[kRowsPerWarp][kMaxT],
+                                         const float* rows, const float* keys,
+                                         int r0, int D, int kstride, int n_t,
+                                         int lane) {
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) acc[i][t] = 0.f;
+  for (int d = 0; d < D; d += 4) {
+    float4 qv[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(rows + (r0 + i) * D + d);
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      if (t < n_t) {
+        const float4 kk =
+            *reinterpret_cast<const float4*>(keys + (lane + 32 * t) * kstride + d);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          acc[i][t] = fmaf(qv[i].x, kk.x, acc[i][t]);
+          acc[i][t] = fmaf(qv[i].y, kk.y, acc[i][t]);
+          acc[i][t] = fmaf(qv[i].z, kk.z, acc[i][t]);
+          acc[i][t] = fmaf(qv[i].w, kk.w, acc[i][t]);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ bias,
+                   const int32_t* __restrict__ seeds, const T* __restrict__ dout,
+                   T* __restrict__ dq, float* __restrict__ stats, int G, int H,
+                   int S, int D, float scale, uint32_t threshold,
+                   float drop_scale, int use_dropout, int seed_group) {
+  extern __shared__ __align__(16) float smem[];
+  const int S_pad = round32(S);
+  const int n_t = S_pad >> 5;
+  const int kstride = D + 4;
+  float* kv_s = smem;                       // K [S_pad][D+4], then V, then K
+  float* r_s = kv_s + S_pad * kstride;      // Q tile [kRows][D], then dout tile
+  float* ds_s = r_s + kRows * D;            // [kRows][S_pad]
+
+  const int g = blockIdx.x;                 // (sample, head) pair
+  const int row0 = blockIdx.y * kRows;
+  const int n_rows = min(kRows, S - row0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = warp * kRowsPerWarp;
+  const size_t base = (size_t)g * S * D;
+  float* row_max = stats;
+  float* row_sum = stats + (size_t)G * S;
+  float* row_delta = stats + 2 * (size_t)G * S;
+
+  stage(kv_s, k + base, S, S_pad, D, kstride);
+  stage(r_s, q + base + (size_t)row0 * D, n_rows, kRows, D, D);
+  __syncthreads();
+
+  // s, then p in registers; lane owns keys lane + 32 t (the forward's layout)
+  float p[kRowsPerWarp][kMaxT];
+  row_dots(p, r_s, kv_s, r0, D, kstride, n_t, lane);
+  const float* bias_row = bias + (size_t)(g / H) * S;
+  float b[kMaxT];
+#pragma unroll
+  for (int t = 0; t < kMaxT; ++t) {
+    const int j = lane + 32 * t;
+    b[t] = (t < n_t && j < S) ? bias_row[j] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int row = row0 + r0 + i;
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      const int j = lane + 32 * t;
+      if (t < n_t && j < S) {
+        p[i][t] = p[i][t] * scale + b[t];
+        m = fmaxf(m, p[i][t]);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float sum = 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      const int j = lane + 32 * t;
+      if (t < n_t) {
+        p[i][t] = j < S ? expf(p[i][t] - m) : 0.f;
+        sum += p[i][t];
+      }
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t)
+      if (t < n_t) p[i][t] = p[i][t] / sum;  // 0 for j >= S
+    if (lane == 0 && row < S) {
+      row_max[(size_t)g * S + row] = m;
+      row_sum[(size_t)g * S + row] = sum;
+    }
+  }
+  __syncthreads();  // every warp is done with K and the Q tile
+
+  // dp = dout·vᵀ: V replaces K, the dout tile replaces the Q tile
+  stage(kv_s, v + base, S, S_pad, D, kstride);
+  stage(r_s, dout + base + (size_t)row0 * D, n_rows, kRows, D, D);
+  __syncthreads();
+  float dp[kRowsPerWarp][kMaxT];
+  row_dots(dp, r_s, kv_s, r0, D, kstride, n_t, lane);
+  uint32_t seed = 0, idx_base = 0;
+  if (use_dropout) {
+    seed = (uint32_t)seeds[g / seed_group];
+    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int row = row0 + r0 + i;
+    const uint32_t row_idx = idx_base + (uint32_t)row * (uint32_t)S;
+    float delta = 0.f;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      const int j = lane + 32 * t;
+      if (t < n_t) {
+        if (use_dropout && j < S) {
+          const bool keep = hash_bits(row_idx + (uint32_t)j, seed) >= threshold;
+          dp[i][t] = keep ? dp[i][t] * drop_scale : 0.f;
+        }
+        delta += dp[i][t] * p[i][t];
+      }
+    }
+    delta = warp_sum(delta);
+    if (lane == 0 && row < S) row_delta[(size_t)g * S + row] = delta;
+#pragma unroll
+    for (int t = 0; t < kMaxT; ++t) {
+      const int j = lane + 32 * t;
+      if (t < n_t)  // p = 0 beyond S, so ds = 0 there
+        ds_s[(r0 + i) * S_pad + j] = round_to<T>(p[i][t] * (dp[i][t] - delta));
+    }
+  }
+  __syncthreads();  // every warp is done with V
+
+  // dq = ds·K·scale: K once more (row stride D), lane owns columns lane + 32 u
+  stage(kv_s, k + base, S, S_pad, D, D);
+  __syncthreads();
+  float o[kRowsPerWarp][kMaxU];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int u = 0; u < kMaxU; ++u) o[i][u] = 0.f;
+  for (int j = 0; j < S_pad; j += 4) {
+    float4 sv[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+      sv[i] = *reinterpret_cast<const float4*>(ds_s + (r0 + i) * S_pad + j);
+#pragma unroll
+    for (int u = 0; u < kMaxU; ++u) {
+      const int c = lane + 32 * u;
+      if (c < D) {
+        const float k0 = kv_s[j * D + c], k1 = kv_s[(j + 1) * D + c];
+        const float k2 = kv_s[(j + 2) * D + c], k3 = kv_s[(j + 3) * D + c];
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          o[i][u] = fmaf(sv[i].x, k0, o[i][u]);
+          o[i][u] = fmaf(sv[i].y, k1, o[i][u]);
+          o[i][u] = fmaf(sv[i].z, k2, o[i][u]);
+          o[i][u] = fmaf(sv[i].w, k3, o[i][u]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int row = row0 + r0 + i;
+    if (row < S) {
+#pragma unroll
+      for (int u = 0; u < kMaxU; ++u) {
+        const int c = lane + 32 * u;
+        if (c < D) dq[base + (size_t)row * D + c] = from_f32<T>(o[i][u] * scale);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ bias,
+                    const int32_t* __restrict__ seeds, const T* __restrict__ dout,
+                    const float* __restrict__ stats, T* __restrict__ dk,
+                    T* __restrict__ dv, int G, int H, int S, int D, float scale,
+                    uint32_t threshold, float drop_scale, int use_dropout,
+                    int seed_group) {
+  extern __shared__ __align__(16) float smem[];
+  const int stride = D + 4;
+  float* k_s = smem;                        // K tile [kRows][D+4]
+  float* v_s = k_s + kRows * stride;        // V tile
+  float* q_s = v_s + kRows * stride;        // Q chunk [32][D+4]
+  float* o_s = q_s + 32 * stride;           // dout chunk
+  float* pd_s = o_s + 32 * stride;          // [kRows keys][32 queries]
+  float* ds_s = pd_s + kRows * 32;
+
+  const int g = blockIdx.x;
+  const int col0 = blockIdx.y * kRows;      // first key of the tile
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = warp * kRowsPerWarp;       // the warp's keys, within the tile
+  const size_t base = (size_t)g * S * D;
+  const float* row_max = stats;
+  const float* row_sum = stats + (size_t)G * S;
+  const float* row_delta = stats + 2 * (size_t)G * S;
+
+  stage(k_s, k + base + (size_t)col0 * D, min(kRows, S - col0), kRows, D, stride);
+  stage(v_s, v + base + (size_t)col0 * D, min(kRows, S - col0), kRows, D, stride);
+  const float* bias_row = bias + (size_t)(g / H) * S;
+  float bj[kRowsPerWarp];
+#pragma unroll
+  for (int jj = 0; jj < kRowsPerWarp; ++jj) {
+    const int j = col0 + c0 + jj;
+    bj[jj] = j < S ? bias_row[j] : 0.f;
+  }
+  uint32_t seed = 0, idx_base = 0;
+  if (use_dropout) {
+    seed = (uint32_t)seeds[g / seed_group];
+    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+  }
+  float acc_v[kRowsPerWarp][kMaxU], acc_k[kRowsPerWarp][kMaxU];
+#pragma unroll
+  for (int jj = 0; jj < kRowsPerWarp; ++jj)
+#pragma unroll
+    for (int u = 0; u < kMaxU; ++u) acc_v[jj][u] = acc_k[jj][u] = 0.f;
+
+  for (int i0 = 0; i0 < S; i0 += 32) {
+    __syncthreads();  // the previous chunk's Q and dout are read
+    const int n_q = min(32, S - i0);
+    stage(q_s, q + base + (size_t)i0 * D, n_q, 32, D, stride);
+    stage(o_s, dout + base + (size_t)i0 * D, n_q, 32, D, stride);
+    __syncthreads();
+
+    // lane's query i = i0 + lane against the warp's 4 keys, same dot order
+    // as attn_bwd_dq_kernel (d ascending, one fmaf each)
+    float s[kRowsPerWarp], dpv[kRowsPerWarp];
+#pragma unroll
+    for (int jj = 0; jj < kRowsPerWarp; ++jj) s[jj] = dpv[jj] = 0.f;
+    for (int d = 0; d < D; d += 4) {
+      const float4 qv = *reinterpret_cast<const float4*>(q_s + lane * stride + d);
+      const float4 ov = *reinterpret_cast<const float4*>(o_s + lane * stride + d);
+#pragma unroll
+      for (int jj = 0; jj < kRowsPerWarp; ++jj) {
+        const float4 kk = *reinterpret_cast<const float4*>(k_s + (c0 + jj) * stride + d);
+        const float4 vv = *reinterpret_cast<const float4*>(v_s + (c0 + jj) * stride + d);
+        s[jj] = fmaf(qv.x, kk.x, s[jj]);
+        s[jj] = fmaf(qv.y, kk.y, s[jj]);
+        s[jj] = fmaf(qv.z, kk.z, s[jj]);
+        s[jj] = fmaf(qv.w, kk.w, s[jj]);
+        dpv[jj] = fmaf(ov.x, vv.x, dpv[jj]);
+        dpv[jj] = fmaf(ov.y, vv.y, dpv[jj]);
+        dpv[jj] = fmaf(ov.z, vv.z, dpv[jj]);
+        dpv[jj] = fmaf(ov.w, vv.w, dpv[jj]);
+      }
+    }
+    const int i = i0 + lane;
+    const bool row_ok = i < S;
+    const float m = row_ok ? row_max[(size_t)g * S + i] : 0.f;
+    const float l = row_ok ? row_sum[(size_t)g * S + i] : 1.f;
+    const float delta = row_ok ? row_delta[(size_t)g * S + i] : 0.f;
+    const uint32_t row_idx = idx_base + (uint32_t)i * (uint32_t)S;
+#pragma unroll
+    for (int jj = 0; jj < kRowsPerWarp; ++jj) {
+      const int j = col0 + c0 + jj;
+      float pd = 0.f, ds = 0.f;
+      if (row_ok && j < S) {
+        float sv = s[jj] * scale + bj[jj];
+        const float p = expf(sv - m) / l;
+        float dp = dpv[jj];
+        pd = p;
+        if (use_dropout) {
+          const bool keep = hash_bits(row_idx + (uint32_t)j, seed) >= threshold;
+          pd = keep ? p * drop_scale : 0.f;
+          dp = keep ? dp * drop_scale : 0.f;
+        }
+        pd = round_to<T>(pd);
+        ds = round_to<T>(p * (dp - delta));
+      }
+      pd_s[(c0 + jj) * 32 + lane] = pd;
+      ds_s[(c0 + jj) * 32 + lane] = ds;
+    }
+    __syncwarp();
+
+    // dv[j] += Σᵢ pd[j][i]·dout[i], dk[j] += Σᵢ ds[j][i]·q[i]; lane owns
+    // columns lane + 32 u, the 4 keys' pd and ds are broadcast reads
+    for (int ii = 0; ii < 32; ii += 4) {
+      float4 pv[kRowsPerWarp], sv[kRowsPerWarp];
+#pragma unroll
+      for (int jj = 0; jj < kRowsPerWarp; ++jj) {
+        pv[jj] = *reinterpret_cast<const float4*>(pd_s + (c0 + jj) * 32 + ii);
+        sv[jj] = *reinterpret_cast<const float4*>(ds_s + (c0 + jj) * 32 + ii);
+      }
+#pragma unroll
+      for (int u = 0; u < kMaxU; ++u) {
+        const int c = lane + 32 * u;
+        if (c < D) {
+          const float o0 = o_s[ii * stride + c], o1 = o_s[(ii + 1) * stride + c];
+          const float o2 = o_s[(ii + 2) * stride + c], o3 = o_s[(ii + 3) * stride + c];
+          const float q0 = q_s[ii * stride + c], q1 = q_s[(ii + 1) * stride + c];
+          const float q2 = q_s[(ii + 2) * stride + c], q3 = q_s[(ii + 3) * stride + c];
+#pragma unroll
+          for (int jj = 0; jj < kRowsPerWarp; ++jj) {
+            acc_v[jj][u] = fmaf(pv[jj].x, o0, acc_v[jj][u]);
+            acc_v[jj][u] = fmaf(pv[jj].y, o1, acc_v[jj][u]);
+            acc_v[jj][u] = fmaf(pv[jj].z, o2, acc_v[jj][u]);
+            acc_v[jj][u] = fmaf(pv[jj].w, o3, acc_v[jj][u]);
+            acc_k[jj][u] = fmaf(sv[jj].x, q0, acc_k[jj][u]);
+            acc_k[jj][u] = fmaf(sv[jj].y, q1, acc_k[jj][u]);
+            acc_k[jj][u] = fmaf(sv[jj].z, q2, acc_k[jj][u]);
+            acc_k[jj][u] = fmaf(sv[jj].w, q3, acc_k[jj][u]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // pd_s and ds_s are rewritten by the next chunk
+  }
+#pragma unroll
+  for (int jj = 0; jj < kRowsPerWarp; ++jj) {
+    const int j = col0 + c0 + jj;
+    if (j < S) {
+#pragma unroll
+      for (int u = 0; u < kMaxU; ++u) {
+        const int c = lane + 32 * u;
+        if (c < D) {
+          dk[base + (size_t)j * D + c] = from_f32<T>(acc_k[jj][u] * scale);
+          dv[base + (size_t)j * D + c] = from_f32<T>(acc_v[jj][u]);
+        }
+      }
+    }
+  }
+}
+
+size_t dq_smem_bytes(int S, int D) {
+  const size_t S_pad = (size_t)round32(S);
+  return sizeof(float) * (S_pad * (D + 4) + (size_t)kRows * D + (size_t)kRows * S_pad);
+}
+
+size_t dkv_smem_bytes(int D) {
+  return sizeof(float) * ((size_t)4 * kRows * (D + 4) + (size_t)2 * kRows * 32);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const void* seeds, const void* dout, void* dq, void* dk, void* dv,
+           void* stats, int G, int H, int S, int D, float scale,
+           uint32_t threshold, float drop_scale, int use_dropout, int seed_group,
+           cudaStream_t stream) {
+  if (S < 1 || S > 32 * kMaxT || D < 4 || D > 32 * kMaxU || D % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem_a = dq_smem_bytes(S, D), smem_b = dkv_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      attn_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(G, (S + kRows - 1) / kRows);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* ot = static_cast<const T*>(dout);
+  const float* bt = static_cast<const float*>(bias);
+  const int32_t* st = static_cast<const int32_t*>(seeds);
+  float* ws = static_cast<float*>(stats);
+  attn_bwd_dq_kernel<T><<<grid, kWarps * 32, smem_a, stream>>>(
+      qt, kt, vt, bt, st, ot, static_cast<T*>(dq), ws, G, H, S, D, scale,
+      threshold, drop_scale, use_dropout, seed_group);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkv_kernel<T><<<grid, kWarps * 32, smem_b, stream>>>(
+      qt, kt, vt, bt, st, ot, ws, static_cast<T*>(dk), static_cast<T*>(dv), G,
+      H, S, D, scale, threshold, drop_scale, use_dropout, seed_group);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, dout, dq, dk, dv: [G, S, D] contiguous, 16-byte aligned, G = B·H;
+// dtype 0 = float32, 1 = bfloat16. bias: [B, S] float32. seeds: int32, read
+// only when use_dropout. stats: float32 workspace of 3·G·S, written by the
+// first launch and read by the second. Returns cudaGetLastError() after the
+// launches (0 on success).
+int fused_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+                        const void* bias, const void* seeds, const void* dout,
+                        void* dq, void* dk, void* dv, void* stats, int G, int H,
+                        int S, int D, float scale, unsigned int threshold,
+                        float drop_scale, int use_dropout, int seed_group,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, bias, seeds, dout, dq, dk, dv, stats, G, H, S,
+                         D, scale, threshold, drop_scale, use_dropout, seed_group, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, bias, seeds, dout, dq, dk, dv, stats, G,
+                                 H, S, D, scale, threshold, drop_scale,
+                                 use_dropout, seed_group, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

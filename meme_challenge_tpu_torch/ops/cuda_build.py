@@ -28,7 +28,11 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 # library name -> its sources under csrc/
 LIBRARIES: Dict[str, tuple] = {
     "fused_attention": ("fused_attention.cu",),
+    "fused_attention_bwd": ("fused_attention_bwd.cu",),
 }
+# headers under csrc/ that every source may include; hashed into each
+# library's file name with its sources
+HEADERS = ("attention_common.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,7 +64,7 @@ def _sources(name: str) -> list:
 
 def library_path(name: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
+    for src in _sources(name) + [os.path.join(CSRC_DIR, f) for f in HEADERS]:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:12]))
@@ -72,7 +76,8 @@ def _start(name: str) -> Optional[subprocess.Popen]:
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (path, os.getpid())
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources(name)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+           *_sources(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.target, proc.tmp = path, tmp

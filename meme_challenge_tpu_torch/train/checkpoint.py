@@ -6,10 +6,18 @@ writes ``torch.save({'model_state_dict': sd})`` (reference utils/save.py:53-64)
 (convert.py:516-524), so a checkpoint moves between the two packages and the
 reference. Flax msgpack, the JAX ``ModelSaver``'s own format, cannot be read
 without flax.
+
+``save_train_state`` / ``load_train_state`` keep the full training state
+for a mid-training resume (parameters, optimizer moments, step count,
+epoch) in a torch file of the port's own; ``save_training_meta`` writes the
+hyper-parameters and git information (reference utils/save.py:11-48).
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
+import subprocess
 
 import torch
 from torch import nn
@@ -40,3 +48,64 @@ class ModelSaver:
             load_torch_state_dict(self.output_path))
         model.load_state_dict(sd, strict=True)
         return model
+
+
+def _to(tree, device):
+    """A state tree (dicts of tensors and ints) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def save_train_state(path: str, state, epoch: int) -> None:
+    """Full-state checkpoint of a ``steps.TrainState`` for resume."""
+    payload = {"params": _to(state.model.state_dict(), "cpu"),
+               "opt_state": _to(state.opt_state, "cpu"),
+               "step": int(state.step), "epoch": int(epoch)}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str, state):
+    """Restores ``state`` (its model's parameters, its optimizer state and
+    step) in place from :func:`save_train_state`'s file; returns
+    (state, epoch)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["params"], strict=True)
+    device = next(state.model.parameters()).device
+    state.opt_state = _to(payload["opt_state"], device)
+    state.step = int(payload["step"])
+    return state, int(payload["epoch"])
+
+
+def save_training_meta(output_dir: str, config, model_config=None) -> None:
+    """log/hps.json + log/model.json + log/git_info.json (reference
+    utils/save.py:11-48)."""
+    log_dir = os.path.join(output_dir, "log")
+    os.makedirs(log_dir, exist_ok=True)
+    cfg = (dataclasses.asdict(config)
+           if dataclasses.is_dataclass(config) else dict(config))
+    with open(os.path.join(log_dir, "hps.json"), "w") as f:
+        json.dump(cfg, f, indent=4, default=str)
+    if model_config is not None:
+        mc = (dataclasses.asdict(model_config)
+              if dataclasses.is_dataclass(model_config) else dict(model_config))
+        with open(os.path.join(log_dir, "model.json"), "w") as f:
+            json.dump(mc, f, indent=4)
+    try:
+        def git(*args):
+            return subprocess.run(
+                ["git", *args], timeout=10, stdout=subprocess.PIPE,
+                stderr=subprocess.DEVNULL,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+            ).stdout.decode().strip()
+
+        info = {"branch": git("rev-parse", "--abbrev-ref", "HEAD"),
+                "sha": git("rev-parse", "HEAD"),
+                "is_dirty": bool(git("status", "--short"))}
+        with open(os.path.join(log_dir, "git_info.json"), "w") as f:
+            json.dump(info, f, indent=4)
+    except Exception:  # git info is best-effort (the reference catches too)
+        pass

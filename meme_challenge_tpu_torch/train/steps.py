@@ -1,11 +1,22 @@
-"""Eval steps.
+"""Train and eval steps.
 
-Counterpart of the eval half of ``meme_challenge_tpu/train/steps.py``; the
-train steps come with the training slice (ROADMAP.md).
+Counterpart of ``meme_challenge_tpu/train/steps.py``. PyTorch runs eagerly,
+so a "step" is a Python function over device tensors, not a compiled
+program:
 
+- :func:`make_train_step`: one optimizer step over an ``[accum, B, ...]``
+  batch. Per micro-batch a backward, the gradients summed in micro order
+  and divided by ``accum`` (reference train_template.py:89-109); or, with
+  ``fuse_accum``, one forward and backward over the flattened ``[accum·B]``
+  batch whose loss is the mean of the per-micro masked means. Losses and
+  probabilities stay on the device: a step fetches nothing to the host.
+- :func:`make_train_multi_step` runs ``--steps_per_dispatch`` steps as a
+  plain loop (``--dispatch_unroll`` has nothing to unroll): the numbers are
+  those of single steps, because every step's dropout generator is made
+  from (seed, optimizer step) (``core/seeding.dropout_generator``).
 - Host batches stay numpy until :func:`to_device`, the trainer boundary:
-  model inputs become tensors on the device there, ``img_feat`` still fp16 as
-  stored (the model upcasts it).
+  tensors on the device there, ``img_feat`` still fp16 as stored (the model
+  upcasts it).
 - ``gather_micro`` assembles a micro-batch on the device from the whole
   dataset's device-resident arrays plus a batch of indices
   (``--device_resident_data``).
@@ -15,15 +26,20 @@ train steps come with the training slice (ROADMAP.md).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-# batch keys the model reads; everything else (ids, labels, sample_mask)
-# stays on the host
+from meme_challenge_tpu_torch.core.seeding import dropout_generator
+
+# batch keys the model reads; in eval everything else (ids, labels,
+# sample_mask) stays on the host
 MODEL_INPUT_KEYS = ("input_ids", "position_ids", "txt_mask", "img_feat",
                     "img_pos_feat", "img_mask")
+# what a train step reads besides the model inputs (or the indices)
+TRAIN_KEYS = ("labels", "sample_mask")
 
 
 def to_device(arrays: Dict[str, np.ndarray], device,
@@ -32,6 +48,129 @@ def to_device(arrays: Dict[str, np.ndarray], device,
     dtypes as stored."""
     return {k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
             for k in keys if k in arrays and arrays[k] is not None}
+
+
+@dataclass
+class TrainState:
+    """The model (its parameters), the optimizer state and the optimizer
+    steps taken (a host int)."""
+    model: torch.nn.Module
+    opt_state: dict
+    step: int = 0
+
+
+def create_train_state(model: torch.nn.Module, optimizer) -> TrainState:
+    return TrainState(model, optimizer.init(dict(model.named_parameters())))
+
+
+def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
+                    accum_steps: int = 1, gather_data: bool = False,
+                    fuse_accum: bool = False):
+    """One optimizer step: ``train_step(state, batch, generator, data=None)``
+    → (state, {"loss": [accum], "probs": [accum, B(, C)]}).
+
+    ``batch`` holds device tensors with leading ``[accum, B]`` dims: the
+    model inputs (or ``indices`` with ``gather_data``, gathered from
+    ``data`` by :func:`gather_micro`), ``labels`` and ``sample_mask``.
+    ``loss_fn(logits, labels, sample_mask)`` → (loss, probs). Dropout draws
+    from ``generator``; the parameters and ``state`` are updated in place.
+    A zero-mask micro-batch (the padded end of an epoch) has loss 0 and adds
+    zero gradients."""
+    params = dict(model.named_parameters())
+
+    def forward(batch, generator, data):
+        if gather_data:
+            batch = gather_micro(data, batch)
+        return model(batch, deterministic=False, generator=generator), batch
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator,
+                   data: Optional[Dict[str, torch.Tensor]] = None):
+        for p in params.values():
+            p.grad = None
+        if fuse_accum and accum_steps > 1:
+            flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                    for k, v in batch.items()}
+            logits, flat = forward(flat, generator, data)
+            logits = logits.reshape((accum_steps, -1) + tuple(logits.shape[1:]))
+            labels = flat["labels"].reshape(accum_steps, -1)
+            masks = flat["sample_mask"].reshape(accum_steps, -1)
+            outs = [loss_fn(logits[a], labels[a], masks[a])
+                    for a in range(accum_steps)]
+            losses = torch.stack([o[0] for o in outs])
+            losses.mean().backward()
+            probs = torch.stack([o[1] for o in outs]).detach()
+            losses = losses.detach()
+        else:
+            losses, probs = [], []
+            for a in range(accum_steps):
+                micro = {k: v[a] for k, v in batch.items()}
+                logits, micro = forward(micro, generator, data)
+                loss, pr = loss_fn(logits, micro["labels"],
+                                   micro["sample_mask"])
+                loss.backward()  # sums into .grad in micro order
+                losses.append(loss.detach())
+                probs.append(pr.detach())
+            losses, probs = torch.stack(losses), torch.stack(probs)
+        # a parameter the batch did not reach has a zero gradient, as in JAX
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params.values()]
+        if accum_steps > 1 and not fuse_accum:
+            grads = torch._foreach_div(grads, float(accum_steps))
+        optimizer.step(params, dict(zip(params, grads)), state.opt_state)
+        for p in params.values():
+            p.grad = None
+        state.step += 1
+        return state, {"loss": losses, "probs": probs}
+
+    return train_step
+
+
+def make_train_multi_step(train_step: Callable, seed: int, device):
+    """``steps_per_dispatch`` optimizer steps from one stacked chunk
+    ``[K, accum, B, ...]``, as a plain loop of ``train_step``: step k draws
+    its dropout from ``dropout_generator(seed, state.step)``, the generator
+    a single step at that count gets, so chunked and unchunked training are
+    equal. Returns (state, {"loss": [K, accum], "probs": [K, accum, ...]})."""
+
+    def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],
+                   data: Optional[Dict[str, torch.Tensor]] = None):
+        n = next(iter(batches.values())).shape[0]
+        outs = []
+        for i in range(n):
+            gen = dropout_generator(seed, state.step, device)
+            state, out = train_step(state, {k: v[i] for k, v in
+                                            batches.items()}, gen, data)
+            outs.append(out)
+        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return multi_step
+
+
+def stack_for_accum(batches: list) -> Dict[str, np.ndarray]:
+    """Stack ``accum`` host micro-batches into one [accum, ...] numpy batch
+    (uploaded whole by :func:`to_device`)."""
+    return {key: np.stack([np.asarray(b[key]) for b in batches], axis=0)
+            for key in batches[0]}
+
+
+def stack_chunk(chunk: list) -> Dict[str, np.ndarray]:
+    """Stack K per-step batches into the [K, ...] input of
+    :func:`make_train_multi_step`."""
+    return stack_for_accum(chunk)
+
+
+def chunk_batches(stream, steps_per_dispatch: int):
+    """Group a batch stream: ``("chunk", [K batches])`` for each full run
+    and ``("single", batch)`` for the tail."""
+    pending: list = []
+    for item in stream:
+        pending.append(item)
+        if len(pending) == steps_per_dispatch:
+            yield "chunk", pending
+            pending = []
+    for item in pending:
+        yield "single", item
 
 
 def gather_micro(data: Dict[str, torch.Tensor],

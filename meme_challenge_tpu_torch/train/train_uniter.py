@@ -1,19 +1,26 @@
-"""UNITER entry point (inference slice).
+"""UNITER fine-tuning and inference entry point.
 
 Counterpart of ``meme_challenge_tpu/train/train_uniter.py``, with the same
 flags plus ``--device`` (default ``cuda``; asking for ``cuda`` without a card
-raises). The reference README's inference command maps directly:
+raises). The reference README's recipe maps directly, with ``--num_folds 0``
+(the fold loop is a later slice):
 
     python -m meme_challenge_tpu_torch.train.train_uniter \
         --data_path dataset --feature_path dataset/img_feats \
-        --vocab_file vocab.txt --model_path ckpts --model_save_name best.ckpt \
-        --max_epoch 0 --num_folds 0 --batch_size 16 [--compute_bf16]
+        --vocab_file vocab.txt --pretrained_model_file uniter-base.pt \
+        --lr 3e-5 --scheduler warmup_cosine --warmup_steps 500 \
+        --batch_size 16 --gradient_accumulation 2 --confounder_repeat 3 \
+        --pos_wt 1.8 --max_epoch 30 --patience 5 --num_folds 0 \
+        [--compute_bf16] [--fuse_accum] [--device_resident_data]
 
-It reloads ``model_path/model_save_name`` (a torch checkpoint in the
-reference's format) and writes the validation CSV, a CSV per test set and
-the metrics JSON. ``--pretrained_model_file`` reads reference torch dumps
-(fine-tuned MemeUniter or UNITER pretraining); flax msgpack files raise.
-``--slow_rng`` is accepted and does nothing (a JAX PRNG switch).
+It fine-tunes with dropout and early stopping, reloads the best checkpoint
+and writes the validation CSV, a CSV per test set and the metrics JSON;
+``--max_epoch 0`` serves ``model_path/model_save_name`` as it is.
+``--pretrained_model_file`` reads reference torch dumps (fine-tuned
+MemeUniter or UNITER pretraining); flax msgpack files raise.
+``--steps_per_dispatch`` and ``--dispatch_unroll`` run their steps as a
+plain loop with the numbers of single steps; ``--slow_rng`` is accepted and
+does nothing (a JAX PRNG switch).
 """
 from __future__ import annotations
 
@@ -132,6 +139,7 @@ def build_entry(config: TrainConfig, uniter_config: UniterConfig,
             test_loaders.append(test_data_loader(path))
 
     def trainer_factory(cfg, train_loader, val_loader, fold_test_loaders):
+        # the Trainer builds the optimizer and schedule from cfg
         model = init_meme_uniter_params(
             uniter_config, cfg, device, torch_generator(cfg.seed, device))
         return Trainer(cfg, model, train_loader, val_loader,

@@ -1,8 +1,11 @@
 """PyTorch port, ops/attention.py: the plain PyTorch versions of the two fused
-attention kernels against the JAX package's Pallas kernels (interpret mode on
-the CPU), with and without dropout; the counter hash bit for bit against the
-numpy replica; the block-size policy; and the wrapper's guards. The CUDA
-kernels themselves run only on the card (chip_smoke.py)."""
+attention kernels and of their backward against the JAX package's Pallas
+kernels and ``jax.grad`` through their custom VJPs (interpret mode on the
+CPU), with and without dropout; the autograd functions against the plain
+backward; the counter hash bit for bit against the numpy replica; the
+block-size policy; and the wrapper's guards. The CUDA kernels themselves run
+only on the card (chip_smoke.py)."""
+import jax
 import numpy as np
 import pytest
 import torch
@@ -124,3 +127,97 @@ def test_non_cuda_device_raises():
                      for x in _inputs(0, 1, 2, 16, 8))
     with pytest.raises(ValueError, match="cuda or cpu"):
         T.fused_attention(q, k, v, bias, 0.5)
+
+
+# ------------------------------------------------------------------ backward
+
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _bwd_case(seed, B, H, S, D, dtype, kernel):
+    q, k, v, bias = _inputs(seed, B, H, S, D)
+    do = np.random.RandomState(seed + 1).randn(B, H, S, D).astype(np.float32)
+    n_seeds = B if kernel == "per_sample" else J.blocked_seed_count(B, H)
+    seeds = np.random.RandomState(11).randint(
+        0, 2 ** 31 - 1, size=n_seeds).astype(np.int32)
+    group = H if kernel == "per_sample" else T._largest_block(B * H)
+    return q, k, v, bias, do, seeds, group
+
+
+def _jax_grads(kernel, q, k, v, bias, do, scale, rate, seeds, dtype):
+    jax_fn = KERNELS[kernel][0]
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+
+    def f(q_, k_, v_):
+        out = jax_fn(q_, k_, v_, jnp.asarray(bias), scale, rate,
+                     jnp.asarray(seeds))
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do, jd)
+                       .astype(jnp.float32))
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x, jd)
+                                              for x in (q, k, v)))
+    return [np.asarray(g, np.float32) for g in grads]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+@pytest.mark.parametrize("S", [17, 24])
+def test_plain_backward_matches_jax_grad(S, kernel, rate, dtype):
+    """fused_attention_bwd_plain against jax.grad of the Pallas kernel's
+    custom VJP (_bwd_kernel / _blk_bwd_kernel in interpret mode): each
+    gradient within BWD_TOL of its largest magnitude. bf16 rounds p, pd and
+    ds where the JAX kernel does; the products differ by fp32 summation
+    order only."""
+    B, H, D = 2, 3, 8
+    q, k, v, bias, do, seeds, group = _bwd_case(S, B, H, S, D, dtype, kernel)
+    scale = 1.0 / np.sqrt(D)
+    ref = _jax_grads(kernel, q, k, v, bias, do, scale, rate, seeds, dtype)
+    td = getattr(torch, dtype)
+    got = T.fused_attention_bwd_plain(
+        *(torch.from_numpy(x).to(td) for x in (q, k, v)),
+        torch.from_numpy(bias), torch.from_numpy(do).to(td), scale, rate,
+        torch.from_numpy(seeds), group)
+    for g, r in zip(got, ref):
+        assert g.dtype == td
+        err = np.abs(g.float().numpy() - r).max() / np.abs(r).max()
+        assert err <= BWD_TOL[dtype], err
+    if rate > 0:
+        # dropout reaches the gradient: dv of a dropped (i, j) pair is zero
+        # where the rate-0 gradient is not
+        no_drop = T.fused_attention_bwd_plain(
+            *(torch.from_numpy(x).to(td) for x in (q, k, v)),
+            torch.from_numpy(bias), torch.from_numpy(do).to(td), scale, 0.0,
+            None, group)
+        assert not torch.equal(got[2], no_drop[2])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_autograd_function_matches_plain_backward_on_cpu(kernel, rate):
+    """The wrapper's autograd backward on CPU tensors is the plain backward:
+    the same gradients bit for bit, no gradient for the bias, and no kernel
+    launch counted."""
+    B, H, S, D = 2, 4, 24, 8
+    q, k, v, bias, do, seeds, group = _bwd_case(5, B, H, S, D, "float32",
+                                                kernel)
+    scale = 1.0 / np.sqrt(D)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tbias = torch.from_numpy(bias).requires_grad_()
+    before = dict(T.LAUNCHES)
+    out = KERNELS[kernel][1](*leaves, tbias, scale, rate,
+                             torch.from_numpy(seeds))
+    out.backward(torch.from_numpy(do))
+    ref = T.fused_attention_bwd_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(bias),
+        torch.from_numpy(do), scale, rate, torch.from_numpy(seeds), group)
+    for leaf, r in zip(leaves, ref):
+        assert torch.equal(leaf.grad, r)
+    assert tbias.grad is None
+    assert T.LAUNCHES == before
+
+
+def test_launch_counts_name_every_kernel():
+    assert set(T.LAUNCHES) == {"fused_attention", "fused_attention_blocked",
+                               "fused_attention_bwd",
+                               "fused_attention_blocked_bwd"}

@@ -1,8 +1,12 @@
-"""PyTorch port, models/uniter.py: MemeUniter logits against the JAX package
-on the text-only, image-only and joint branches, with padded text and boxes,
-through each of the encoder's three attention branches (the fused kernel's
-plain version on the CPU, bf16 score storage, plain fp32). Weights come from
-one flax init carried across by ``meme_uniter_state_from_jax``."""
+"""PyTorch port, models/uniter.py: MemeUniter logits, and the training loss
+with its gradients, against the JAX package on the text-only, image-only
+and joint branches, with padded text and boxes, through each of the
+encoder's attention branches (the fused kernels' plain versions on the CPU,
+bf16 score storage, plain fp32); and the training-mode dropout (seeded,
+keep fractions of both bit widths). Weights come from one flax init carried
+across by ``meme_uniter_state_from_jax``."""
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,12 +18,17 @@ from torch_parity import (
     flax_params,
     jax_logits,
     make_batch,
+    port_tree_from_jax,
     torch_logits,
     torch_model,
 )
 
+from meme_challenge_tpu.core.config import UniterConfig as JaxUniterConfig
+from meme_challenge_tpu.models.uniter import MemeUniter as JaxMemeUniter
+from meme_challenge_tpu.train.losses import bce_logits_loss as jax_bce_logits
 from meme_challenge_tpu_torch.core.config import UniterConfig
 from meme_challenge_tpu_torch.models import uniter as U
+from meme_challenge_tpu_torch.train.losses import bce_logits_loss
 
 BRANCHES = ("joint", "text", "image")
 
@@ -97,8 +106,122 @@ def test_init_is_seeded_and_shaped():
     assert float(sa["linear.bias"].abs().max()) == 0.0
 
 
-def test_dropout_forward_raises():
+# ---------------------------------------------------------------- training
+
+NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+# the four attention branches on the joint input, and the text-only and
+# image-only inputs through the fused kernel
+LOSS_CASES = ([("joint", a) for a in sorted(ATTENTION)]
+              + [("text", "fused"), ("image", "fused")])
+# gradient tolerance relative to each parameter's largest gradient: fp32
+# products summed in other orders over 2 layers (largest seen: 2.5e-6);
+# bf16 score storage rounds the fp32 scores to bf16 in both packages, and a
+# score summed in another order can round to the neighbouring bf16 value
+GRAD_TOL = {"bf16_scores": 1e-3}
+GRAD_TOL_FP32 = 2e-5
+# the key bias's gradient is zero up to rounding (softmax ignores a shift of
+# a whole score row): both packages' values are noise, held below
+# NOISE_TOL of the model's largest gradient instead of compared
+NOISE_ONLY = "attention.self.key.bias"
+NOISE_TOL = 1e-3
+
+
+@pytest.mark.parametrize("name,attention", LOSS_CASES)
+def test_loss_and_grads_match_jax(name, attention):
+    """bce_logits (pos_wt 1.8, one sample masked out) of MemeUniter in
+    training mode with dropout off: the loss, and the gradient of every
+    parameter carried across the QKV split and the transposes."""
+    params = flax_params()
+    cfg = dict(ATTENTION[attention], **NO_DROPOUT)
+    batch = branch(make_batch(seed=6), name)
+    labels, mask = np.array([1, 0, 1], np.int32), np.array([1, 1, 0],
+                                                           np.int32)
+    jmodel = JaxMemeUniter(JaxUniterConfig(**{**SMALL, **cfg}))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_fn(p):
+        logits = jmodel.apply({"params": p}, jb, deterministic=False)
+        return jax_bce_logits(logits, jnp.asarray(labels), jnp.asarray(mask),
+                              pos_weight=1.8)[0]
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(params)
+    ref = port_tree_from_jax(jgrads)
+
+    model = torch_model(params, **cfg)
+    logits = model({k: torch.from_numpy(v) for k, v in batch.items()},
+                   deterministic=False)
+    loss, _ = bce_logits_loss(logits, torch.from_numpy(labels),
+                              torch.from_numpy(mask), pos_weight=1.8)
+    loss.backward()
+    assert abs(loss.item() - float(jloss)) <= 1e-6
+    tol = GRAD_TOL.get(attention, GRAD_TOL_FP32)
+    grads = dict(model.named_parameters())
+    assert set(grads) == set(ref)
+    top = max(np.abs(r).max() for r in ref.values())
+    for n, p in grads.items():
+        g = (p.grad.numpy() if p.grad is not None
+             else np.zeros(p.shape, np.float32))
+        r = ref[n]
+        if n.endswith(NOISE_ONLY):
+            assert max(np.abs(g).max(), np.abs(r).max()) <= NOISE_TOL * top, n
+            continue
+        err = np.abs(g - r).max()
+        assert err <= tol * np.abs(r).max(), (n, err, np.abs(r).max())
+    assert np.abs(ref["linear.weight"]).max() > 1e-3  # the loss has signal
+
+
+@pytest.mark.parametrize("attention", sorted(ATTENTION))
+def test_dropout_is_seeded(attention):
+    """Training mode (dropout 0.1 / 0.1): one generator seed gives the same
+    logits twice, another seed other logits, and both differ from eval."""
+    model = torch_model(flax_params(), **ATTENTION[attention])
+    batch = make_batch(seed=7)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def run(seed):
+        with torch.no_grad():
+            if seed is None:
+                return model(tb).numpy()
+            return model(tb, deterministic=False,
+                         generator=torch.Generator().manual_seed(seed)).numpy()
+
+    a, b, c, ev = run(1), run(1), run(2), run(None)
+    np.testing.assert_array_equal(a, b)
+    assert np.abs(a - c).max() > 1e-4
+    assert np.abs(a - ev).max() > 1e-4
+
+
+@pytest.mark.parametrize("bits8,keep", [(False, 0.9), (True, 1 - 26 / 256)])
+def test_threshold_dropout_keep_fraction(bits8, keep):
+    x = torch.ones(1000, 1000)
+    y = U.threshold_dropout(x, 0.1, torch.Generator().manual_seed(0), bits8)
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - keep) < 3e-3
+    # kept values are scaled by the effective keep probability
+    np.testing.assert_allclose(y[kept].numpy(), 1.0 / keep, rtol=1e-6)
+
+
+def test_bernoulli_dropout_keep_fraction_and_identity():
+    x = torch.ones(1000, 1000)
+    y = U.bernoulli_dropout(x, 0.1, torch.Generator().manual_seed(0))
+    assert abs(float((y != 0).float().mean()) - 0.9) < 3e-3
+    assert U.bernoulli_dropout(x, 0.1, None) is x
+    assert U.threshold_dropout(x, 0.0, torch.Generator()) is x
+
+
+def test_training_without_generator_raises():
     model = torch_model(flax_params())
     tb = {k: torch.from_numpy(v) for k, v in make_batch().items()}
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="Generator"):
         model(tb, deterministic=False)
+
+
+def test_remat_training_raises():
+    """remat=True with dropout on is not ported (ROADMAP.md): training
+    raises, inference runs (remat changes no value there)."""
+    model = torch_model(flax_params(), remat=True)
+    tb = {k: torch.from_numpy(v) for k, v in make_batch().items()}
+    with pytest.raises(NotImplementedError, match="remat"):
+        model(tb, deterministic=False, generator=torch.Generator())
+    with torch.no_grad():
+        assert torch.isfinite(model(tb)).all()

@@ -55,11 +55,14 @@ def branch(batch, name):
 
 @functools.lru_cache(maxsize=None)
 def flax_params(n_classes=1, seed=0):
-    """One flax MemeUniter init (numpy leaves) at the SMALL width."""
+    """One flax MemeUniter init (numpy leaves) at the SMALL width. The key's
+    implementation is pinned: the JAX CLI's ``main()`` switches the
+    process-wide default to ``rbg``, and a test that ran it earlier in the
+    same worker would otherwise change these weights."""
     model = JaxMemeUniter(JaxUniterConfig(**SMALL), n_classes=n_classes)
     batch = {k: jax.numpy.asarray(v) for k, v in make_batch().items()}
-    params = model.init(jax.random.PRNGKey(seed), batch,
-                        deterministic=True)["params"]
+    key = jax.random.key(seed, impl="threefry2x32")
+    params = model.init(key, batch, deterministic=True)["params"]
     return jax.tree_util.tree_map(np.asarray, params)
 
 
@@ -75,6 +78,15 @@ def torch_model(params, n_classes=1, **cfg):
     model = MemeUniter(UniterConfig(**{**SMALL, **cfg}), n_classes=n_classes)
     model.load_state_dict(meme_uniter_state_from_jax(params), strict=True)
     return model.eval()
+
+
+def port_tree_from_jax(tree):
+    """A flax MemeUniter-shaped tree (weights, gradients or optimizer
+    moments; numpy leaves) under the port's ``state_dict`` names, as numpy.
+    ``meme_uniter_state_from_jax`` is linear (transposes and the QKV split),
+    so it carries a gradient tree as it carries weights."""
+    tree = jax.tree_util.tree_map(np.asarray, tree)
+    return {k: v.numpy() for k, v in meme_uniter_state_from_jax(tree).items()}
 
 
 def torch_logits(model, batch):
