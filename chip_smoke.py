@@ -16,21 +16,28 @@ Phases, each of which makes the script exit non-zero if it fails:
    (bfloat16), the backward's dq, dk, dv within 1e-5 / 2e-2 of each one's
    largest magnitude; under dropout exactly the zero positions of the plain
    version (one-hot v windows reveal the forward's dropped probabilities,
-   one-hot dout windows the backward's through dv). Times by CUDA events:
-   the kernel, its plain version, and torch's scaled_dot_product_attention
-   (forward, or backward through autograd) as a yardstick the port never
-   calls, beside the least time the card could take (the bound).
+   one-hot dout windows the backward's through dv); two backward calls with
+   dropout on give the same bits. Each launch's CUDA body (``mma_bf16`` on
+   the tensor cores, ``cuda_core``) is read from the per-route launch counts
+   and must be the one ``attention_route`` names; the ragged shapes run both
+   bodies in bfloat16, and the rule's shared-memory formula must equal the
+   kernels' own. Times by CUDA events at rate 0 and 0.1: the kernel, its
+   plain version, and torch's scaled_dot_product_attention (forward, or
+   backward through autograd) as a yardstick the port never calls, beside
+   the least time the card could take (the bound). ptxas's registers,
+   spills and shared memory of every kernel are printed after the build.
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
-   the launch counts (12 layers × eval batches), and one batch's float32
-   logits on the card against the CPU (plain versions) within 1e-4.
+   the launch counts (12 layers × eval batches, every bfloat16 launch on
+   ``mma_bf16`` and every float32 one on ``cuda_core``), and one batch's
+   float32 logits on the card against the CPU (plain versions) within 1e-4.
 5. Train phase: full-width UNITER-base fine-tunes through the same CLI (the
    README recipe with ``--num_folds 0``, 2 epochs, dropout 0.1): the
    per-sample kernel in float32 and with ``--compute_bf16``, the
    pair-blocked kernel with ``--fuse_accum`` in bfloat16 and float32.
    Checks forward and backward launch counts against the micro-batches
-   stepped, finite losses, the best checkpoint, CSVs, metrics JSON, and
+   stepped (and their routes, as in 4), finite losses, the best checkpoint, CSVs, metrics JSON, and
    prints train memes/s per epoch. Then one fp32 micro-batch's loss and
    gradients, card against CPU, within 1e-4; and where one train step's
    time goes (wall against host issue, kernels by torch.profiler).
@@ -43,6 +50,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -159,41 +167,87 @@ def attention_inputs(torch, dtype, gen, batch=B):
     return q, k, v, bias
 
 
-RAGGED = ((2, 3, 24, 8), (3, 4, 100, 64), (2, 2, 256, 128), (2, 12, 17, 16))
+# off the main path: S not a multiple of 16 or 32, D not a multiple of 16,
+# the largest S and D the kernels take; for bf16 both routes in both
+# directions (attention_route): S 24, 100, 17, 150 and 160 at D 80 take
+# mma_bf16 everywhere, S 160 at D 128 mma_bf16 forward and cuda_core
+# backward (shared memory), S 176 and 256 cuda_core
+RAGGED = ((2, 3, 24, 8), (3, 4, 100, 64), (2, 2, 256, 128), (2, 12, 17, 16),
+          (2, 4, 150, 64), (1, 2, 160, 80), (2, 4, 160, 128), (2, 3, 176, 64))
+
+
+def ragged_inputs(torch, shape, dtype, gen, n_seeds, n=3):
+    """n random [b, h, s, d] tensors, a key bias masking a random tail of
+    each sample, and int32 seeds."""
+    b, h, s, d = shape
+    dt = getattr(torch, dtype)
+    xs = [torch.randn(shape, generator=gen, device="cuda").to(dt)
+          for _ in range(n)]
+    lens = torch.randint(1, s + 1, (b,), generator=gen, device="cuda")
+    bias = ((torch.arange(s, device="cuda")[None] >= lens[:, None])
+            .float() * -10000.0)[:, None, None, :].contiguous()
+    seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    return xs, bias, seeds
+
+
+def route_taken(A, name, fn):
+    """Run fn() and return the route of the one launch of ``name`` it made,
+    read from the per-route launch counts."""
+    before = {r: A.ROUTE_LAUNCHES[(name, r)] for r in A.ROUTES}
+    out = fn()
+    taken = [r for r in A.ROUTES if A.ROUTE_LAUNCHES[(name, r)] != before[r]]
+    if len(taken) != 1:
+        fail("%s: expected one launch, got routes %s" % (name, taken))
+    return out, taken[0]
+
+
+def check_routes(torch, A, name, taken, backward) -> None:
+    """The routes ``taken`` ({(shape, dtype): route}) match attention_route,
+    and bf16 took both."""
+    for (shape, dtype), route in taken.items():
+        want = A.attention_route(getattr(torch, dtype), shape[2], shape[3],
+                                 backward)
+        if route != want:
+            fail("%s %s at %s took %s, the rule says %s"
+                 % (name, dtype, shape, route, want))
+    bf16 = {r for (_, dtype), r in taken.items() if dtype == "bfloat16"}
+    if bf16 != set(A.ROUTES):
+        fail("%s: bf16 took only %s, expected both routes" % (name, bf16))
 
 
 def ragged_checks(torch, A, gen) -> None:
-    """Both kernels at shapes off the main path (S not a multiple of 32, the
-    largest S and D the kernel takes) against their plain versions."""
-    for shape in RAGGED:
-        b, h, s, d = shape
-        for name, kernel, plain, n_seeds in (
-                ("fused_attention", A.fused_attention,
-                 A.fused_attention_plain, b),
-                ("fused_attention_blocked", A.fused_attention_blocked,
-                 A.fused_attention_blocked_plain, A.blocked_seed_count(b, h))):
+    """Both kernels at RAGGED shapes (S not a multiple of 16, the largest S
+    and D the kernel takes, both routes in bf16) against their plain
+    versions."""
+    for name, kernel, plain, n_seeds in (
+            ("fused_attention", A.fused_attention, A.fused_attention_plain,
+             lambda b, h: b),
+            ("fused_attention_blocked", A.fused_attention_blocked,
+             A.fused_attention_blocked_plain, A.blocked_seed_count)):
+        taken = {}
+        for shape in RAGGED:
+            b, h, s, d = shape
             for dtype in ("float32", "bfloat16"):
-                dt = getattr(torch, dtype)
-                q, k, v = (torch.randn(shape, generator=gen,
-                                       device="cuda").to(dt) for _ in range(3))
-                lens = torch.randint(1, s + 1, (b,), generator=gen,
-                                     device="cuda")
-                bias = ((torch.arange(s, device="cuda")[None] >= lens[:, None])
-                        .float() * -10000.0)[:, None, None, :].contiguous()
-                seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds,),
-                                      generator=gen, device="cuda",
-                                      dtype=torch.int32)
+                (q, k, v), bias, seeds = ragged_inputs(torch, shape, dtype,
+                                                       gen, n_seeds(b, h))
                 for rate in (0.0, 0.1):
-                    out = kernel(q, k, v, bias, d ** -0.5, rate, seeds)
+                    out, taken[(shape, dtype)] = route_taken(
+                        A, name,
+                        lambda: kernel(q, k, v, bias, d ** -0.5, rate, seeds))
                     ref = plain(q, k, v, bias, d ** -0.5, rate, seeds)
                     err = (out.float() - ref.float()).abs().max().item()
                     if err > TOL[dtype] or not torch.equal(out == 0,
                                                            ref == 0):
-                        fail("kernel %s %s at %s rate %g: max_abs_err %.3g"
-                             % (name, dtype, shape, rate, err))
+                        fail("kernel %s %s at %s rate %g (%s): max_abs_err "
+                             "%.3g" % (name, dtype, shape, rate,
+                                       taken[(shape, dtype)], err))
+        check_routes(torch, A, name, taken, backward=False)
+        log("kernel %s at shapes %s, fp32 and bf16, rate 0 and 0.1: agrees "
+            "with its plain version; bf16 routes %s" % (name, RAGGED, {
+                shape[2:]: r for (shape, dt), r in taken.items()
+                if dt == "bfloat16"}))
     torch.cuda.synchronize()
-    log("kernel shapes %s: both kernels, fp32 and bf16, rate 0 and 0.1, "
-        "agree with their plain versions" % (RAGGED,))
 
 
 def _rel_err(torch, got, ref) -> tuple:
@@ -225,34 +279,32 @@ def kernel_grads(torch, fwd, q, k, v, bias, do, scale, rate, seeds):
 
 def bwd_ragged_checks(torch, A, gen) -> None:
     """Both backward kernels at RAGGED shapes against the plain backward."""
-    for shape in RAGGED:
-        b, h, s, d = shape
-        for name, fwd, group, n_seeds in _bwd_kernels(A):
+    for name, fwd, group, n_seeds in _bwd_kernels(A):
+        taken = {}
+        for shape in RAGGED:
+            b, h, s, d = shape
             for dtype in ("float32", "bfloat16"):
-                dt = getattr(torch, dtype)
-                q, k, v, do = (torch.randn(shape, generator=gen,
-                                           device="cuda").to(dt)
-                               for _ in range(4))
-                lens = torch.randint(1, s + 1, (b,), generator=gen,
-                                     device="cuda")
-                bias = ((torch.arange(s, device="cuda")[None] >= lens[:, None])
-                        .float() * -10000.0)[:, None, None, :].contiguous()
-                seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds(b, h),),
-                                      generator=gen, device="cuda",
-                                      dtype=torch.int32)
+                (q, k, v, do), bias, seeds = ragged_inputs(
+                    torch, shape, dtype, gen, n_seeds(b, h), n=4)
                 for rate in (0.0, 0.1):
-                    got = kernel_grads(torch, fwd, q, k, v, bias, do,
-                                       d ** -0.5, rate, seeds)
+                    got, taken[(shape, dtype)] = route_taken(
+                        A, name, lambda: kernel_grads(
+                            torch, fwd, q, k, v, bias, do, d ** -0.5, rate,
+                            seeds))
                     ref = A.fused_attention_bwd_plain(
                         q, k, v, bias, do, d ** -0.5, rate, seeds,
                         group(b, h))
                     _, rel = _rel_err(torch, got, ref)
                     if not rel <= TOL[dtype]:
-                        fail("kernel %s %s at %s rate %g: relative error %.3g"
-                             % (name, dtype, shape, rate, rel))
+                        fail("kernel %s %s at %s rate %g (%s): relative "
+                             "error %.3g" % (name, dtype, shape, rate,
+                                             taken[(shape, dtype)], rel))
+        check_routes(torch, A, name, taken, backward=True)
+        log("kernel %s at shapes %s, fp32 and bf16, rate 0 and 0.1: agrees "
+            "with the plain backward; bf16 routes %s" % (name, RAGGED, {
+                shape[2:]: r for (shape, dt), r in taken.items()
+                if dt == "bfloat16"}))
     torch.cuda.synchronize()
-    log("kernel shapes %s: both backward kernels, fp32 and bf16, rate 0 and "
-        "0.1, agree with the plain backward" % (RAGGED,))
 
 
 def bwd_kernel_phase(torch, A, gen) -> dict:
@@ -261,15 +313,16 @@ def bwd_kernel_phase(torch, A, gen) -> dict:
     seeds: dq, dk, dv within TOL of the plain backward relative to each
     one's largest magnitude, and under dropout exactly the zeros of the
     plain backward's dv for one-hot dout windows (dv[j, d] = pd[c + d, j]).
-    Times at B 16: the backward kernels (through the autograd backward), the
+    Two calls with dropout on give the same bits. Times at B 16: the
+    backward kernels (through the autograd backward) at rate 0 and 0.1, the
     plain backward, and torch's scaled_dot_product_attention backward with
-    the same mask at rate 0 (a yardstick the port never calls)."""
+    the same mask at rate 0 and 0.1 (a yardstick the port never calls)."""
     bwd_ragged_checks(torch, A, gen)
     scale, rate = 1.0 / D ** 0.5, 0.1
     results = {}
     for name, fwd, group, n_seeds in _bwd_kernels(A):
         for dtype in ("float32", "bfloat16"):
-            abs_err, rel_err = 0.0, 0.0
+            abs_err, rel_err, repeat_identical = 0.0, 0.0, True
             for batch in (B, 2 * B):
                 q, k, v, bias = attention_inputs(torch, dtype, gen, batch)
                 do = torch.randn(q.shape, generator=gen,
@@ -286,6 +339,11 @@ def bwd_kernel_phase(torch, A, gen) -> dict:
                     e_abs, e_rel = _rel_err(torch, got, ref)
                     abs_err, rel_err = max(abs_err, e_abs), max(rel_err,
                                                                 e_rel)
+                # with dropout on, a second call gives the same bits
+                again = kernel_grads(torch, fwd, q, k, v, bias, do, scale,
+                                     rate, seeds)
+                repeat_identical &= all(bool(torch.equal(a, b))
+                                        for a, b in zip(got, again))
                 zeros_equal, dropped, total = True, 0, 0
                 for c in (0, 64, 96):
                     probe = torch.zeros_like(do)
@@ -302,42 +360,79 @@ def bwd_kernel_phase(torch, A, gen) -> dict:
                     total += int(kept.sum())
                 torch.cuda.synchronize()
                 log("kernel %s %s B %d: relative error %.3g (tol %g), "
-                    "zero_positions_equal=%s dropped_share=%.4f"
+                    "zero_positions_equal=%s dropped_share=%.4f "
+                    "repeat_identical=%s"
                     % (name, dtype, batch, rel_err, TOL[dtype], zeros_equal,
-                       dropped / max(total, 1)))
-                if not (rel_err <= TOL[dtype] and zeros_equal):
-                    fail("kernel %s %s disagrees with the plain backward"
-                         % (name, dtype))
-            # times at B 16, rate 0
+                       dropped / max(total, 1), repeat_identical))
+                if not (rel_err <= TOL[dtype] and zeros_equal
+                        and repeat_identical):
+                    fail("kernel %s %s disagrees with the plain backward or "
+                         "with itself" % (name, dtype))
+            # times at B 16, rate 0 and 0.1
             q, k, v, bias = attention_inputs(torch, dtype, gen)
             do = torch.randn(q.shape, generator=gen,
                              device="cuda").to(q.dtype)
+            seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds(B, H),),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32)
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = fwd(*leaves, bias, scale)
-            ms, host_ms = device_ms(lambda: torch.autograd.grad(
-                out, leaves, do, retain_graph=True))
+            ms, ms_drop, host_ms = {}, {}, 0.0
+            for r, times in ((0.0, ms), (rate, ms_drop)):
+                out = fwd(*leaves, bias, scale, r, seeds)
+                _, route = route_taken(A, name, lambda: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True))
+                times["t"], host_ms = device_ms(lambda: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True))
             plain_ms, _ = device_ms(lambda: A.fused_attention_bwd_plain(
                 q, k, v, bias, do, scale, 0.0, None, group(B, H)))
-            lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            lib_out = torch.nn.functional.scaled_dot_product_attention(
-                *lib_leaves, attn_mask=bias.to(q.dtype), scale=scale)
-            library_ms, _ = device_ms(lambda: torch.autograd.grad(
-                lib_out, lib_leaves, do, retain_graph=True))
+            lib = {}
+            for r in (0.0, rate):
+                lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                lib_out = torch.nn.functional.scaled_dot_product_attention(
+                    *lib_leaves, attn_mask=bias.to(q.dtype), dropout_p=r,
+                    scale=scale)
+                lib[r], _ = device_ms(lambda: torch.autograd.grad(
+                    lib_out, lib_leaves, do, retain_graph=True))
             bound_ms, bound_by = attention_bwd_bound_ms(dtype, B)
-            log("kernel %s %s: max_abs_err %.3g | ms=%.4f plain_ms=%.4f "
-                "library_ms=%.4f bound_ms=%.4f (%s) wrapper_host_ms=%.4f"
-                % (name, dtype, abs_err, ms, plain_ms, library_ms, bound_ms,
-                   bound_by, host_ms))
+            log("kernel %s %s (%s): max_abs_err %.3g repeat_identical=%s | "
+                "ms=%.4f ms_rate%.1f=%.4f plain_ms=%.4f library_ms=%.4f "
+                "library_ms_rate%.1f=%.4f bound_ms=%.4f (%s) "
+                "wrapper_host_ms=%.4f"
+                % (name, dtype, route, abs_err, repeat_identical, ms["t"],
+                   rate, ms_drop["t"], plain_ms, lib[0.0], rate, lib[rate],
+                   bound_ms, bound_by, host_ms))
             results[(name, dtype)] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                route=route, max_abs_err=abs_err, ms=ms["t"],
+                ms_dropout=ms_drop["t"], plain_ms=plain_ms,
+                library_ms=lib[0.0], library_ms_dropout=lib[rate],
+                bound_ms=bound_ms, bound_by=bound_by)
     return results
+
+
+def smem_rule_check(A) -> None:
+    """The route rule's shared-memory formula and limits in Python
+    (attention_route) are the CUDA sources' own."""
+    fwd, bwd = A._lib(), A._bwd_lib()
+    if fwd.fused_attention_mma_max_s() != A.MMA_MAX_S:
+        fail("MMA_MAX_S %d, the kernel's %d"
+             % (A.MMA_MAX_S, fwd.fused_attention_mma_max_s()))
+    for s in (1, 17, 24, 100, 128, 150, 160):
+        for d in (4, 8, 16, 20, 64, 80, 128):
+            for c_fn, backward in ((fwd.fused_attention_mma_smem, False),
+                                   (bwd.fused_attention_bwd_mma_smem, True)):
+                if c_fn(s, d) != A.mma_smem_bytes(s, d, backward):
+                    fail("mma_smem_bytes(%d, %d, backward=%s) = %d, the "
+                         "kernel's %d" % (s, d, backward,
+                                          A.mma_smem_bytes(s, d, backward),
+                                          c_fn(s, d)))
+    log("route rule: shared-memory formula and limits equal the kernels'")
 
 
 def kernel_phase(torch) -> dict:
     from meme_challenge_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    smem_rule_check(A)
     ragged_checks(torch, A, gen)
     scale = 1.0 / D ** 0.5
     rate = 0.1
@@ -351,7 +446,8 @@ def kernel_phase(torch) -> dict:
             q, k, v, bias = attention_inputs(torch, dtype, gen)
             seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds,), generator=gen,
                                   device="cuda", dtype=torch.int32)
-            out = kernel(q, k, v, bias, scale)
+            out, route = route_taken(A, name,
+                                     lambda: kernel(q, k, v, bias, scale))
             torch.cuda.synchronize()
             ref = plain(q, k, v, bias, scale)
             err0 = (out.float() - ref.float()).abs().max().item()
@@ -374,25 +470,31 @@ def kernel_phase(torch) -> dict:
             tol = TOL[dtype]
             ok = err0 <= tol and err_d <= tol and zeros_equal
             ms, host_ms = device_ms(lambda: kernel(q, k, v, bias, scale))
+            ms_drop, _ = device_ms(
+                lambda: kernel(q, k, v, bias, scale, rate, seeds))
             plain_ms, _ = device_ms(lambda: plain(q, k, v, bias, scale))
             mask = bias.to(q.dtype)
-            library_ms, _ = device_ms(
+            lib = {r: device_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=scale))
+                    q, k, v, attn_mask=mask, dropout_p=r, scale=scale))[0]
+                for r in (0.0, rate)}
             bound_ms, bound_by = attention_bound_ms(dtype)
-            log("kernel %s %s: max_abs_err rate0=%.3g rate%.1f=%.3g (tol %g) "
-                "zero_positions_equal=%s dropped_share=%.4f | ms=%.4f "
-                "plain_ms=%.4f library_ms=%.4f bound_ms=%.4f (%s) "
+            log("kernel %s %s (%s): max_abs_err rate0=%.3g rate%.1f=%.3g "
+                "(tol %g) zero_positions_equal=%s dropped_share=%.4f | "
+                "ms=%.4f ms_rate%.1f=%.4f plain_ms=%.4f library_ms=%.4f "
+                "library_ms_rate%.1f=%.4f bound_ms=%.4f (%s) "
                 "wrapper_host_ms=%.4f"
-                % (name, dtype, err0, rate, err_d, tol, zeros_equal,
-                   dropped / max(total, 1), ms, plain_ms, library_ms,
-                   bound_ms, bound_by, host_ms))
+                % (name, dtype, route, err0, rate, err_d, tol, zeros_equal,
+                   dropped / max(total, 1), ms, rate, ms_drop, plain_ms,
+                   lib[0.0], rate, lib[rate], bound_ms, bound_by, host_ms))
             if not ok:
                 fail("kernel %s %s disagrees with its plain version"
                      % (name, dtype))
             results[(name, dtype)] = dict(
-                max_abs_err=max(err0, err_d), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                route=route, max_abs_err=max(err0, err_d), ms=ms,
+                ms_dropout=ms_drop, plain_ms=plain_ms, library_ms=lib[0.0],
+                library_ms_dropout=lib[rate], bound_ms=bound_ms,
+                bound_by=bound_by)
     results.update(bwd_kernel_phase(torch, A, gen))
     return results
 
@@ -468,6 +570,31 @@ def forward_breakdown(torch, model, batch, dtype: str) -> None:
                "; ".join("%s %.3f" % (k[:40], t) for t, k in rows[:6])))
     except Exception as e:  # informational: a missing trace fails nothing
         log("breakdown %s: profiler unavailable (%s)" % (dtype, e))
+
+
+def reset_launches(A) -> None:
+    for counts in (A.LAUNCHES, A.ROUTE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def main_path_route(dtype: str) -> str:
+    """The route every launch of the UNITER-base main path (S 160, D 64)
+    takes: mma_bf16 in bfloat16, cuda_core in float32."""
+    return "mma_bf16" if dtype == "bfloat16" else "cuda_core"
+
+
+def check_route_counts(A, tag: str, dtype: str, names) -> dict:
+    """Every launch of ``names`` since reset_launches went through the main
+    path's route for ``dtype``; returns the per-route counts of ``names``."""
+    want = main_path_route(dtype)
+    counts = {"%s/%s" % key: n for key, n in A.ROUTE_LAUNCHES.items()
+              if key[0] in names and n}
+    for name in names:
+        if A.ROUTE_LAUNCHES[(name, want)] != A.LAUNCHES[name]:
+            fail("%s: launches by route %s, expected all %d of %s on %s"
+                 % (tag, counts, A.LAUNCHES[name], name, want))
+    return counts
 
 
 def _n_lines(path: str) -> int:
@@ -563,22 +690,24 @@ def inference_phase(torch, work: str, synth: dict, passlog) -> None:
         if dtype == "bfloat16":
             argv.append("--compute_bf16")
         passlog.clear()
-        for key in A.LAUNCHES:
-            A.LAUNCHES[key] = 0
+        reset_launches(A)
         t0 = time.time()
         train_uniter.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = dict(A.LAUNCHES)
+        by_route = check_route_counts(A, "inference %s %s" % (name, dtype),
+                                      dtype, (name,))
         expected = layers * n_batches
         others = sum(v for k, v in counts.items() if k != name)
         memes = sum(n for n, _ in passlog.passes)
         secs = sum(s for _, s in passlog.passes)
         warm = passlog.passes[1:]
         log("inference %s %s: CLI %.1f s, launches %d (expected %d = %d "
-            "layers x %d eval batches), inference %d memes in %.4f s = %.1f "
-            "memes/s (after the first pass: %.1f memes/s)"
+            "layers x %d eval batches; by route %s), inference %d memes in "
+            "%.4f s = %.1f memes/s (after the first pass: %.1f memes/s)"
             % (name, dtype, wall, counts[name], expected, layers, n_batches,
+               by_route,
                memes, secs, memes / secs,
                sum(n for n, _ in warm) / sum(s for _, s in warm)))
         if counts[name] != expected or others != 0:
@@ -672,14 +801,14 @@ def train_phase(torch, work: str, synth: dict, passlog) -> dict:
         if fuse:
             argv.append("--fuse_accum")
         passlog.clear()
-        for key in A.LAUNCHES:
-            A.LAUNCHES[key] = 0
+        reset_launches(A)
         t0 = time.time()
         train_uniter.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = dict(A.LAUNCHES)
         bwd = name + "_bwd"
+        by_route = check_route_counts(A, "train " + tag, dtype, (name, bwd))
         launches[(name, dtype)], launches[(bwd, dtype)] = (counts[name],
                                                            counts[bwd])
         # every micro-batch of an epoch is stepped, the short last group
@@ -692,9 +821,10 @@ def train_phase(torch, work: str, synth: dict, passlog) -> dict:
                 bwd: layers * train_fwd}
         log("train %s: CLI %.1f s, %d epochs; launches forward %d (expected "
             "%d = %d layers x (%d train + %d eval forwards)), backward %d "
-            "(expected %d)" % (tag, wall, len(passlog.epochs), counts[name],
-                               want[name], layers, train_fwd, eval_batches,
-                               counts[bwd], want[bwd]))
+            "(expected %d); by route %s"
+            % (tag, wall, len(passlog.epochs), counts[name], want[name],
+               layers, train_fwd, eval_batches, counts[bwd], want[bwd],
+               by_route))
         for i, (n, secs) in enumerate(passlog.epochs, 1):
             log("train %s: epoch %d, %d memes in %.4f s = %.1f memes/s"
                 % (tag, i, n, secs, n / secs))
@@ -912,8 +1042,13 @@ def main(argv) -> None:
         {k: round(v, 1) for k, v in secs.items()})))
     for name in cuda_build.LIBRARIES:
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log("ptxas %s: %s" % (name, line.strip()))
+            entry = re.search(r"entry function '\S*?(attn_\w+?kernel)(\w*)'",
+                              line)
+            if entry:  # the kernel and its mangled template arguments
+                log("ptxas %s: %s<%s>" % (name, entry.group(1),
+                                          entry.group(2)[:12]))
+            elif any(w in line for w in ("registers", "spill", "error")):
+                log("ptxas %s:   %s" % (name, line.strip()))
 
     kernels = kernel_phase(torch)
     if "--kernels-only" in argv:
@@ -929,15 +1064,23 @@ def main(argv) -> None:
         for dtype in ("float32", "bfloat16"):
             train_breakdown(torch, synth, dtype)
 
+    # "route" is the kind of kernel (hand-written CUDA C++); "body" is the
+    # CUDA body the route rule picked at the main path's shape, the one the
+    # counted launches went through (check_route_counts)
     entries = []
     for (name, dtype), r in kernels.items():
+        if r["route"] != main_path_route(dtype):
+            fail("%s %s took %s at the main path's shape"
+                 % (name, dtype, r["route"]))
         entries.append({
             "name": "%s[%s]" % (name, dtype), "route": "cuda",
-            "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": launches[(name, dtype)],
+            "body": r["route"], "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches[(name, dtype)],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "ms_dropout": r["ms_dropout"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_ms_dropout": r["library_ms_dropout"]})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

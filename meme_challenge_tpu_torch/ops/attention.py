@@ -26,8 +26,14 @@ recomputes them.
   bias rows and the seeds (never P or the mask); its backward launches the
   backward kernel for CUDA tensors and :func:`fused_attention_bwd_plain` for
   CPU tensors. The bias and the seeds get no gradient.
+- Each CUDA source holds two bodies, and :func:`attention_route`, a pure
+  function of (dtype, S, D), picks one for a launch: ``mma_bf16``
+  (bfloat16 on the tensor cores, ``mma.sync``) where its register tile and
+  shared memory hold the shape, else ``cuda_core`` (fp32 math on the CUDA
+  cores; float32 always).
 
-``LAUNCHES`` counts the kernel launches of each wrapper, forward and backward.
+``LAUNCHES`` counts the kernel launches of each wrapper, forward and backward;
+``ROUTE_LAUNCHES`` the same launches by (wrapper, route).
 """
 from __future__ import annotations
 
@@ -39,8 +45,52 @@ import torch
 
 LAUNCHES = {"fused_attention": 0, "fused_attention_blocked": 0,
             "fused_attention_bwd": 0, "fused_attention_blocked_bwd": 0}
+ROUTES = ("mma_bf16", "cuda_core")
+ROUTE_LAUNCHES = {(name, route): 0 for name in LAUNCHES
+                  for route in ROUTES}
 
 _MASK32 = 0xFFFFFFFF
+
+
+# --------------------------------------------------------------------------
+# Route: which CUDA body a launch takes (csrc/mma_bf16.cuh, the notes of
+# csrc/fused_attention.cu and csrc/fused_attention_bwd.cu)
+# --------------------------------------------------------------------------
+
+MMA_MAX_S = 160     # scores of 16 query rows × every key held in registers
+MMA_MAX_D = 128
+MMA_FWD_TILES = 5   # 16-row query tiles of one forward block
+MAX_SMEM = 232448   # shared memory one block may take on Hopper (227 KB)
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def mma_smem_bytes(S: int, D: int, backward: bool = False) -> int:
+    """Dynamic shared memory of one ``mma_bf16`` block: K, V (and the
+    backward's Q and dout) of the pair and the forward block's Q rows as bf16
+    rows padded to ``pad16(D) + 8``, the backward's bf16 pd and ds tiles
+    ``[pad16(S)][pad16(S) + 8]``, and the fp32 bias row."""
+    s_pad, ld = _pad16(S), _pad16(D) + 8
+    if backward:
+        elems = 4 * s_pad * ld + 2 * s_pad * (s_pad + 8)
+    else:
+        elems = (2 * s_pad + 16 * min(MMA_FWD_TILES, s_pad // 16)) * ld
+    return 2 * elems + 4 * s_pad
+
+
+def attention_route(dtype: torch.dtype, S: int, D: int,
+                    backward: bool = False) -> str:
+    """The CUDA body a launch on ``[B, H, S, D]`` tensors of ``dtype`` takes:
+    ``"mma_bf16"`` for bfloat16 with S <= 160, D <= 128 and the block's
+    shared memory (:func:`mma_smem_bytes`) within 227 KB, else
+    ``"cuda_core"``. float32 always takes ``"cuda_core"``: its 1e-5 parity
+    leaves no room for bf16 or TF32 products. Depends on the shape alone."""
+    if (dtype == torch.bfloat16 and S <= MMA_MAX_S and D <= MMA_MAX_D
+            and mma_smem_bytes(S, D, backward) <= MAX_SMEM):
+        return "mma_bf16"
+    return "cuda_core"
 
 
 # --------------------------------------------------------------------------
@@ -219,10 +269,16 @@ def _bwd_lib():
     lib = cuda_build.load("fused_attention_bwd")
     if not getattr(lib, "typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        u = ctypes.c_uint
         lib.fused_attention_bwd.argtypes = [
-            i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f,
-            ctypes.c_uint, f, i, i, vp]
-        lib.fused_attention_bwd.restype = i
+            i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i,
+            i, vp]
+        lib.fused_attention_bwd_mma.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+        lib.fused_attention_bwd_mma_smem.argtypes = [i, i]
+        for fn in (lib.fused_attention_bwd, lib.fused_attention_bwd_mma,
+                   lib.fused_attention_bwd_mma_smem):
+            fn.restype = i
         lib.typed = True
     return lib
 
@@ -233,12 +289,19 @@ def _lib():
     lib = cuda_build.load("fused_attention")
     if not hasattr(lib, "max_s"):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        u = ctypes.c_uint
         lib.fused_attention_fwd.argtypes = [
-            i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, ctypes.c_uint, f, i, i,
-            vp]
-        lib.fused_attention_fwd.restype = i
-        for fn in (lib.fused_attention_max_s, lib.fused_attention_max_d):
-            fn.argtypes, fn.restype = [], i
+            i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+        lib.fused_attention_fwd_mma.argtypes = [
+            vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+        lib.fused_attention_mma_smem.argtypes = [i, i]
+        for fn in (lib.fused_attention_max_s, lib.fused_attention_max_d,
+                   lib.fused_attention_mma_max_s):
+            fn.argtypes = []
+        for fn in (lib.fused_attention_fwd, lib.fused_attention_fwd_mma,
+                   lib.fused_attention_mma_smem, lib.fused_attention_max_s,
+                   lib.fused_attention_max_d, lib.fused_attention_mma_max_s):
+            fn.restype = i
         lib.max_s = lib.fused_attention_max_s()
         lib.max_d = lib.fused_attention_max_d()
     return lib
@@ -277,46 +340,59 @@ def _check(q, k, v, bias, extra=()):
 
 def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group):
     """Forward kernel on [B, H, S, D] CUDA tensors; ``bias_rows`` [B, S]
-    fp32, ``seeds`` int32 (read only with dropout on)."""
+    fp32, ``seeds`` int32 (read only with dropout on). Returns (out, the
+    route taken)."""
     lib = _check(q, k, v, bias_rows)
     B, H, S, D = q.shape
+    route = attention_route(q.dtype, S, D)
     dropout = rate > 0.0
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(),
+            seeds.data_ptr() if dropout else None, out.data_ptr(), B * H, H,
+            S, D, float(scale), _threshold(rate),
+            _dropout_scale(rate) if dropout else 1.0, int(dropout),
+            seed_group)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fused_attention_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias_rows.data_ptr(), seeds.data_ptr() if dropout else None,
-            out.data_ptr(), B * H, H, S, D, float(scale), _threshold(rate),
-            _dropout_scale(rate) if dropout else 1.0, int(dropout),
-            seed_group, stream)
+        if route == "mma_bf16":
+            err = lib.fused_attention_fwd_mma(*args, stream)
+        else:
+            err = lib.fused_attention_fwd(_DTYPE_CODE[q.dtype], *args, stream)
     if err != 0:
-        raise RuntimeError("fused_attention_fwd launch failed: CUDA error %d"
-                           % err)
-    return out
+        raise RuntimeError("fused_attention_fwd (%s) launch failed: CUDA "
+                           "error %d" % (route, err))
+    return out, route
 
 
 def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group):
-    """Backward kernels (two launches) on [B, H, S, D] CUDA tensors."""
+    """Backward kernel on [B, H, S, D] CUDA tensors: one launch on the
+    ``mma_bf16`` route, two (with a ``[3, B·H, S]`` fp32 workspace) on
+    ``cuda_core``. Returns (dq, dk, dv, the route taken)."""
     _check(q, k, v, bias_rows, extra=(("do", do),))
     B, H, S, D = q.shape
     lib = _bwd_lib()
+    route = attention_route(q.dtype, S, D, backward=True)
     dropout = rate > 0.0
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((3, B * H, S), dtype=torch.float32, device=q.device)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(),
+              seeds.data_ptr() if dropout else None, do.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (B * H, H, S, D, float(scale), _threshold(rate),
+             _dropout_scale(rate) if dropout else 1.0, int(dropout),
+             seed_group)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fused_attention_bwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias_rows.data_ptr(), seeds.data_ptr() if dropout else None,
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), B * H, H, S, D, float(scale), _threshold(rate),
-            _dropout_scale(rate) if dropout else 1.0, int(dropout),
-            seed_group, stream)
+        if route == "mma_bf16":
+            err = lib.fused_attention_bwd_mma(*inputs, *shape, stream)
+        else:
+            stats = torch.empty((3, B * H, S), dtype=torch.float32,
+                                device=q.device)
+            err = lib.fused_attention_bwd(_DTYPE_CODE[q.dtype], *inputs,
+                                          stats.data_ptr(), *shape, stream)
     if err != 0:
-        raise RuntimeError("fused_attention_bwd launch failed: CUDA error %d"
-                           % err)
-    return dq, dk, dv
+        raise RuntimeError("fused_attention_bwd (%s) launch failed: CUDA "
+                           "error %d" % (route, err))
+    return dq, dk, dv, route
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -333,8 +409,10 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             return _attention_plain(q, k, v, bias_rows, scale, rate, seeds,
                                     seed_group)
-        out = _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group)
+        out, route = _launch(q, k, v, bias_rows, scale, rate, seeds,
+                             seed_group)
         LAUNCHES[name] += 1
+        ROUTE_LAUNCHES[(name, route)] += 1
         return out
 
     @staticmethod
@@ -345,8 +423,10 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             grads = fused_attention_bwd_plain(q, k, v, bias_rows, do, *args)
         else:
-            grads = _launch_bwd(q, k, v, bias_rows, do, *args)
-            LAUNCHES[ctx.name + "_bwd"] += 1
+            *grads, route = _launch_bwd(q, k, v, bias_rows, do, *args)
+            name = ctx.name + "_bwd"
+            LAUNCHES[name] += 1
+            ROUTE_LAUNCHES[(name, route)] += 1
         return (*grads, None, None, None, None, None, None)
 
 

@@ -22,12 +22,44 @@
 // bound by operations. bf16 (989 TFLOP/s on the tensor cores, 3.35 TB/s): ≈ 4.7 µs,
 // bound by bytes.
 //
-// Design: fp32 math on the CUDA cores (the fp32 path must match the plain
-// version to 1e-5, so no TF32; bf16 inputs are widened to fp32, which is what
-// XLA's bf16 product with fp32 accumulation computes). Tensor cores
-// (mma/wgmma) and TMA are later work. One block per (pair, tile of 32 query
-// rows), 8 warps; each warp owns 4 query rows end to end, so the softmax
-// needs no block-wide barrier:
+// Two bodies; the route is a pure function of (dtype, S, D), the same as
+// ops/attention.py: attention_route:
+//   mma_bf16  (attn_fwd_mma_kernel): bfloat16 with S <= 160 (mma::kMaxS),
+//             D <= 128 — every shape whose scores fit the register tile.
+//   cuda_core (attn_fwd_kernel): float32 always, bfloat16 beyond that.
+// The route never depends on a failure: a launch that fails returns its
+// error, and nothing falls back.
+//
+// mma_bf16 body, FlashAttention-2's register layout on mma.sync m16n8k16
+// (mma_bf16.cuh; why not wgmma is noted there). One block per (pair, 80 query
+// rows): kFwdTiles = 5 warps, one per 16 query rows, two blocks a pair at
+// S 160 (384 blocks at B 16: of 10, 5, 4 and 2 tiles a block, 5 measured
+// fastest on the H100). K and V of the pair and the block's Q rows are
+// staged in shared memory as bf16 by cp.async (rows padded to D_pad + 8, D
+// zero-padded to a multiple of 16, which is exact; 58 KB at S 160, D 64),
+// with the key bias row (−∞ for the padded keys j >= S); V is a second copy
+// group that lands while the scores are computed. Each warp:
+//   1. s = Q·Kᵀ into registers, fp32 accumulation, all keys at once (80
+//      floats a thread at S 160); · scale + bias.
+//   2. Row max and row sum by quad shuffles, exp(s − m) / sum with the
+//      quotient of IEEE division (mma::div_rn; attention.py:82-89); the hash
+//      drop test at (g, i, j) and the fp32 1/(1 − rate) scale.
+//   3. p rounded to bf16 (attention.py:109) is the A operand of P·V straight
+//      from the accumulators (mma::a_from_acc), no shared memory between;
+//      V from shared memory by ldmatrix.trans; out rounded to bf16, rows
+//      i >= S not written.
+// 2 products of 2·S²·D, as the TPU kernel. At S_pad 160 and D_pad 64 (the
+// main path) a full-tile instantiation has every count and stride known at
+// compile time: the guarded generic one ran 1.3× longer there. The bound is
+// bytes, but at one block's 2 × 80 rows the time goes to instructions: the
+// exp, the division and, under dropout, ~13 integer operations of the hash
+// for each of the 25,600 scores of a pair.
+//
+// cuda_core body: fp32 math on the CUDA cores (the fp32 path must match the
+// plain version to 1e-5, so no TF32; bf16 inputs are widened to fp32, which
+// is what XLA's bf16 product with fp32 accumulation computes). One block per
+// (pair, tile of 32 query rows), 8 warps; each warp owns 4 query rows end to
+// end, so the softmax needs no block-wide barrier:
 //   1. K of the pair is staged in shared memory as fp32 (rows padded to D+4
 //      floats, so float4 reads by lanes of different keys hit different
 //      banks), the Q tile beside it.
@@ -47,10 +79,12 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 using namespace attn;
+using bf16 = __nv_bfloat16;
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32, 2)
@@ -206,6 +240,130 @@ size_t smem_bytes(int S, int D) {
   return sizeof(float) * (S_pad * (D + 4) + (size_t)kRows * D + (size_t)kRows * S_pad);
 }
 
+// ---------------------------------------------------------------- mma_bf16
+
+// query tiles of 16 rows a block takes, one warp each
+constexpr int kFwdTiles = 5;
+static_assert(kFwdTiles <= mma::kKeyChunks, "a block takes at most S_pad/16 tiles");
+
+int fwd_tiles(int S) {
+  const int n_tiles = mma::pad16(S) >> 4;
+  return n_tiles < kFwdTiles ? n_tiles : kFwdTiles;
+}
+
+// K, V as bf16 [S_pad][D_pad + 8], the block's Q rows [16·tiles][D_pad + 8],
+// the fp32 bias row [S_pad]
+size_t mma_smem_bytes(int S, int D) {
+  const size_t S_pad = mma::pad16(S), ld = mma::pad16(D) + 8;
+  return (2 * S_pad + 16 * (size_t)fwd_tiles(S)) * ld * sizeof(bf16) +
+         S_pad * sizeof(float);
+}
+
+// DC: 16-column chunks of D held for the output (4: D <= 64, 8: D <= 128).
+// kFull: S_pad = 160 and D_pad = 16·DC exactly (the main path), so every
+// tile count and row stride is a compile-time constant: no guard branches,
+// and ldmatrix offsets fold into immediates.
+template <int DC, bool kFull>
+__global__ void __launch_bounds__(mma::kKeyChunks * 32, 1)
+attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ bias,
+                    const int32_t* __restrict__ seeds, bf16* __restrict__ out, int H,
+                    int S, int D, float scale, uint32_t threshold, float drop_scale,
+                    int use_dropout, int seed_group) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S_pad = kFull ? 16 * kKeyChunks : pad16(S);
+  const int D_pad = kFull ? 16 * DC : pad16(D), ld = D_pad + 8;
+  const int n_kc = S_pad >> 4, n_dc = D_pad >> 4;
+  const int q_rows = kFull ? 16 * kFwdTiles : blockDim.x >> 1;   // 16 per warp
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + S_pad * ld;
+  bf16* q_s = v_s + S_pad * ld;
+  float* bias_s = reinterpret_cast<float*>(q_s + q_rows * ld);
+
+  const int g = blockIdx.x;                 // (sample, head) pair
+  const int row0 = blockIdx.y * q_rows;     // the block's first query row
+  const int lane = threadIdx.x & 31;
+  const int m0 = (threadIdx.x >> 5) * 16;   // the warp's 16 rows within q_s
+  const size_t base = (size_t)g * S * D;
+  // Q and K first; V lands while the scores and the softmax are computed
+  stage_async(q_s, ld, q + base + (size_t)row0 * D, min(q_rows, S - row0), q_rows, D,
+              D_pad);
+  stage_async(k_s, ld, k + base, S, S_pad, D, D_pad);
+  cp_async_commit();
+  stage_async(v_s, ld, v + base, S, S_pad, D, D_pad);
+  cp_async_commit();
+  stage_bias(bias_s, bias + (size_t)(g / H) * S, S, S_pad);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  float p[2 * kKeyChunks][4];
+  softmax_rows<DC>(p, q_s, k_s, ld, bias_s, m0, n_kc, n_dc, scale, lane);
+  if (use_dropout) {
+    const uint32_t seed = (uint32_t)seeds[g / seed_group];
+    const uint32_t idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+#pragma unroll
+    for (int nt = 0; nt < 2 * kKeyChunks; ++nt) {
+      if (nt < 2 * n_kc) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t i = row0 + m0 + acc_row(lane, r), j = 8 * nt + acc_col(lane, r);
+          const bool keep =
+              hash_bits(idx_base + i * (uint32_t)S + j, seed) >= threshold;
+          p[nt][r] = keep ? p[nt][r] * drop_scale : 0.f;
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // V is in shared memory
+
+  // out = round_bf16(p)·V; p goes from the accumulators into the A operand
+  float o[2 * DC][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * DC; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[nt][r] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < kKeyChunks; ++kc) {
+    if (kc < n_kc) {
+      uint32_t a[4];
+      a_from_acc(a, p[2 * kc], p[2 * kc + 1]);
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        if (dc < n_dc) {
+          uint32_t b[2][2];
+          load_b2_trans(b, v_s, ld, 16 * kc, 16 * dc, lane);
+          mma_bf16(o[2 * dc], a, b[0]);
+          mma_bf16(o[2 * dc + 1], a, b[1]);
+        }
+      }
+    }
+  }
+  store_rows(out + base, o, row0 + m0, S, D, 1.f, lane);
+}
+
+template <int DC, bool kFull>
+int launch_mma_dc(const void* q, const void* k, const void* v, const void* bias,
+                  const void* seeds, void* out, int G, int H, int S, int D, float scale,
+                  uint32_t threshold, float drop_scale, int use_dropout, int seed_group,
+                  cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(S, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_mma_kernel<DC, kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = fwd_tiles(S);
+  const dim3 grid(G, ((mma::pad16(S) >> 4) + tiles - 1) / tiles);
+  attn_fwd_mma_kernel<DC, kFull><<<grid, 32 * tiles, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(seeds), static_cast<bf16*>(out), H, S, D, scale,
+      threshold, drop_scale, use_dropout, seed_group);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* seeds, void* out, int G, int H, int S, int D,
@@ -254,5 +412,30 @@ int fused_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                  threshold, drop_scale, use_dropout, seed_group, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// The mma_bf16 body: bfloat16 only, same arguments and layouts as
+// fused_attention_fwd; S <= fused_attention_mma_max_s(), D <= 128 and a
+// multiple of 4, else cudaErrorInvalidValue.
+int fused_attention_fwd_mma(const void* q, const void* k, const void* v,
+                            const void* bias, const void* seeds, void* out, int G, int H,
+                            int S, int D, float scale, unsigned int threshold,
+                            float drop_scale, int use_dropout, int seed_group,
+                            void* stream) {
+  if (S < 1 || S > mma::kMaxS || D < 4 || D > mma::kMaxD || D % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == 64)
+    return launch_mma_dc<4, true>(q, k, v, bias, seeds, out, G, H, S, D, scale,
+                                  threshold, drop_scale, use_dropout, seed_group, st);
+  if (mma::pad16(D) <= 64)
+    return launch_mma_dc<4, false>(q, k, v, bias, seeds, out, G, H, S, D, scale,
+                                   threshold, drop_scale, use_dropout, seed_group, st);
+  return launch_mma_dc<8, false>(q, k, v, bias, seeds, out, G, H, S, D, scale,
+                                 threshold, drop_scale, use_dropout, seed_group, st);
+}
+
+int fused_attention_mma_max_s(void) { return mma::kMaxS; }
+// dynamic shared memory of one mma_bf16 block (the route rule's formula)
+int fused_attention_mma_smem(int S, int D) { return (int)mma_smem_bytes(S, D); }
 
 }  // extern "C"

@@ -23,10 +23,48 @@
 // CUDA cores (67 TFLOP/s): ≈ 47 µs, bound by operations. bf16 (989 TFLOP/s,
 // 3.35 TB/s): ≈ 8.2 µs, bound by bytes.
 //
-// Design: fp32 math on the CUDA cores, as the forward (no TF32; tensor cores
-// are later work). dk and dv sum over every query row of a pair, and Hopper
-// blocks run in no order, so instead of the TPU's whole-sample VMEM block the
-// backward is two launches, with no atomics and a deterministic result:
+// Two bodies, routed as the forward (ops/attention.py: attention_route):
+//   mma_bf16  (attn_bwd_mma_kernel): bfloat16 with S <= 160, D <= 128 and
+//             the block's shared memory (bwd_mma_smem_bytes) within 227 KB —
+//             at S 160 that is D <= 80.
+//   cuda_core (attn_bwd_dq_kernel + attn_bwd_dkv_kernel): float32 always,
+//             bfloat16 beyond that (e.g. S 256, or S 160 with D 128).
+//
+// mma_bf16 body: one launch, one block per pair holding the whole pair in
+// shared memory, as the TPU kernel held a sample in VMEM; tensor cores by
+// mma.sync m16n8k16 (mma_bf16.cuh). Q, K, V and dout as bf16 [S_pad][D_pad+8]
+// (92 KB at S 160, D 64), the bf16 pd and ds tiles [S_pad][S_pad+8] (107 KB)
+// and the bias row: 196 KB, one block per SM. S_pad/16 warps (10 at S 160);
+// Q and K are one cp.async group, V and dout a second that lands while the
+// scores are computed.
+//   Phase 1, warp w owns query rows 16w .. 16w+15:
+//     s, p = softmax(...) in registers (80 floats a thread at S 160), as the
+//     forward; dp = dout·Vᵀ in registers (80 more); the hash mask at
+//     (g, i, j), computed once; round_bf16(pd) to shared memory;
+//     Δ = Σⱼ dp·p by quad shuffles; ds = round_bf16(p·(dp − Δ)) to shared
+//     memory and straight from the accumulators into the A operand of
+//     dq = ds·K·scale (K by ldmatrix.trans).
+//   __syncthreads.
+//   Phase 2, warp w owns key rows 16w .. 16w+15: dv = pdᵀ·dout and
+//     dk = dsᵀ·Q·scale, pdᵀ and dsᵀ by ldmatrix.trans of the stored tiles.
+// Five products, as the TPU kernel. No workspace, no atomics: the sums run
+// in one fixed order, so two calls give the same bits. Padded rows and
+// columns are zero in shared memory, keys j >= S get p = 0 (bias −∞), rows
+// and keys >= S are not written.
+// Registers: p and dp whole are 160 floats a thread, and 10 warps leave a
+// thread 168 registers (3 warps share one of the SM's four register files),
+// so the main path's instantiation spills 192 bytes a thread. A split that
+// computes dp 16 keys at a time, twice (six products, no spill), measured
+// 2-3 % slower on the H100 (0.0380 against 0.0372 ms at B 16).
+// At S_pad 160 and D_pad 64 a full-tile instantiation has every count and
+// stride known at compile time (1.7× faster there than the guarded generic
+// one). 192 pairs at B 16 are 1.45 waves of one block per SM; 384 at B 32
+// are 2.9.
+//
+// cuda_core body: fp32 math on the CUDA cores, as the forward (no TF32).
+// dk and dv sum over every query row of a pair, and Hopper blocks run in no
+// order, so instead of the TPU's whole-sample VMEM block this body is two
+// launches, with no atomics and a deterministic result:
 //   A. attn_bwd_dq_kernel: one block per (pair, tile of 32 query rows), 8 warps
 //      of 4 rows, laid out as the forward. It recomputes s and p (K staged),
 //      then dp (V staged in K's buffer, the dout tile in Q's), and writes
@@ -53,10 +91,12 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 using namespace attn;
+using bf16 = __nv_bfloat16;
 
 // acc[i][t] = Σ_d rows[r0 + i][d] · keys[lane + 32 t][d], d in order; rows
 // has stride D, keys stride kstride (D + 4: float4 reads by lanes of
@@ -405,6 +445,181 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- mma_bf16
+
+// Q, K, V, dout as bf16 [S_pad][D_pad + 8], pd and ds as bf16
+// [S_pad][S_pad + 8], the fp32 bias row [S_pad]
+size_t bwd_mma_smem_bytes(int S, int D) {
+  const size_t S_pad = mma::pad16(S), ld = mma::pad16(D) + 8;
+  return (4 * S_pad * ld + 2 * S_pad * (S_pad + 8)) * sizeof(bf16) +
+         S_pad * sizeof(float);
+}
+
+// DC: 16-column chunks of D held for the outputs (4: D <= 64, 8: D <= 128).
+// kFull: S_pad = 160 and D_pad = 16·DC exactly (the main path), so every
+// tile count and row stride is a compile-time constant.
+template <int DC, bool kFull>
+__global__ void __launch_bounds__(mma::kKeyChunks * 32, 1)
+attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ bias,
+                    const int32_t* __restrict__ seeds, const bf16* __restrict__ dout,
+                    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    int H, int S, int D, float scale, uint32_t threshold,
+                    float drop_scale, int use_dropout, int seed_group) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S_pad = kFull ? 16 * kKeyChunks : pad16(S);
+  const int D_pad = kFull ? 16 * DC : pad16(D), ld = D_pad + 8, lds = S_pad + 8;
+  const int n_kc = S_pad >> 4, n_dc = D_pad >> 4;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + S_pad * ld;
+  bf16* v_s = k_s + S_pad * ld;
+  bf16* o_s = v_s + S_pad * ld;             // dout
+  bf16* pd_s = o_s + S_pad * ld;            // round_bf16(pd) [query][key]
+  bf16* ds_s = pd_s + S_pad * lds;          // ds [query][key]
+  float* bias_s = reinterpret_cast<float*>(ds_s + S_pad * lds);
+
+  const int g = blockIdx.x;                 // (sample, head) pair
+  const int lane = threadIdx.x & 31;
+  const int w0 = (threadIdx.x >> 5) * 16;   // the warp's 16 query rows, then keys
+  const size_t base = (size_t)g * S * D;
+  // Q and K first; V and dout land while the scores and the softmax are computed
+  stage_async(q_s, ld, q + base, S, S_pad, D, D_pad);
+  stage_async(k_s, ld, k + base, S, S_pad, D, D_pad);
+  cp_async_commit();
+  stage_async(v_s, ld, v + base, S, S_pad, D, D_pad);
+  stage_async(o_s, ld, dout + base, S, S_pad, D, D_pad);
+  cp_async_commit();
+  stage_bias(bias_s, bias + (size_t)(g / H) * S, S, S_pad);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // phase 1: p, dp, the mask, pd, Δ and ds of the warp's query rows, then dq
+  float p[2 * kKeyChunks][4];
+  softmax_rows<DC>(p, q_s, k_s, ld, bias_s, w0, n_kc, n_dc, scale, lane);
+  cp_async_wait<0>();
+  __syncthreads();  // V and dout are in shared memory
+  uint32_t seed = 0, idx_base = 0;
+  if (use_dropout) {
+    seed = (uint32_t)seeds[g / seed_group];
+    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+  }
+  // dp = dout·Vᵀ whole beside p; the mask, pd to shared memory, Δ
+  float dp[2 * kKeyChunks][4];
+  rows_times_keys<DC>(dp, o_s, v_s, ld, w0, n_kc, n_dc, lane);
+  float delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 2 * kKeyChunks; ++nt) {
+    if (nt < 2 * n_kc) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = w0 + acc_row(lane, 2 * h), j = 8 * nt + acc_col(lane, 2 * h);
+        float pd0 = p[nt][2 * h], pd1 = p[nt][2 * h + 1];
+        if (use_dropout) {
+          const uint32_t idx = idx_base + (uint32_t)i * (uint32_t)S + (uint32_t)j;
+          const bool keep0 = hash_bits(idx, seed) >= threshold;
+          const bool keep1 = hash_bits(idx + 1u, seed) >= threshold;
+          pd0 = keep0 ? pd0 * drop_scale : 0.f;
+          pd1 = keep1 ? pd1 * drop_scale : 0.f;
+          dp[nt][2 * h] = keep0 ? dp[nt][2 * h] * drop_scale : 0.f;
+          dp[nt][2 * h + 1] = keep1 ? dp[nt][2 * h + 1] * drop_scale : 0.f;
+        }
+        // rows i >= S hold a finite pd against zero dout rows: no effect on dv
+        *reinterpret_cast<uint32_t*>(pd_s + i * lds + j) = pack_bf16(pd0, pd1);
+        delta[h] += dp[nt][2 * h] * p[nt][2 * h];
+        delta[h] += dp[nt][2 * h + 1] * p[nt][2 * h + 1];
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    delta[h] += __shfl_xor_sync(0xffffffffu, delta[h], 1);
+    delta[h] += __shfl_xor_sync(0xffffffffu, delta[h], 2);
+  }
+  // ds = round_bf16(p·(dp − Δ)) to shared memory and into dq = ds·K
+  float acc[2 * DC][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * DC; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < kKeyChunks; ++kc) {
+    if (kc < n_kc) {
+#pragma unroll
+      for (int t = 2 * kc; t < 2 * kc + 2; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dp[t][r] = p[t][r] * (dp[t][r] - delta[r >> 1]);
+      uint32_t a[4];
+      a_from_acc(a, dp[2 * kc], dp[2 * kc + 1]);   // ds rounded to bf16
+      store_a(ds_s, lds, w0, 16 * kc, a, lane);
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        if (dc < n_dc) {
+          uint32_t b[2][2];
+          load_b2_trans(b, k_s, ld, 16 * kc, 16 * dc, lane);
+          mma_bf16(acc[2 * dc], a, b[0]);
+          mma_bf16(acc[2 * dc + 1], a, b[1]);
+        }
+      }
+    }
+  }
+  store_rows(dq + base, acc, w0, S, D, scale, lane);
+  __syncthreads();  // every warp's pd and ds rows are in shared memory
+
+  // phase 2: dv = pdᵀ·dout and dk = dsᵀ·Q·scale of the warp's keys
+  float acc_v[2 * DC][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * DC; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc_v[nt][r] = acc[nt][r] = 0.f;
+#pragma unroll
+  for (int qc = 0; qc < kKeyChunks; ++qc) {
+    if (qc < n_kc) {
+      uint32_t a[4], b[2][2];
+      load_a_trans(a, pd_s, lds, w0, 16 * qc, lane);
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        if (dc < n_dc) {
+          load_b2_trans(b, o_s, ld, 16 * qc, 16 * dc, lane);
+          mma_bf16(acc_v[2 * dc], a, b[0]);
+          mma_bf16(acc_v[2 * dc + 1], a, b[1]);
+        }
+      }
+      load_a_trans(a, ds_s, lds, w0, 16 * qc, lane);
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        if (dc < n_dc) {
+          load_b2_trans(b, q_s, ld, 16 * qc, 16 * dc, lane);
+          mma_bf16(acc[2 * dc], a, b[0]);
+          mma_bf16(acc[2 * dc + 1], a, b[1]);
+        }
+      }
+    }
+  }
+  store_rows(dv + base, acc_v, w0, S, D, 1.f, lane);
+  store_rows(dk + base, acc, w0, S, D, scale, lane);
+}
+
+template <int DC, bool kFull>
+int launch_mma_dc(const void* q, const void* k, const void* v, const void* bias,
+                  const void* seeds, const void* dout, void* dq, void* dk, void* dv,
+                  int G, int H, int S, int D, float scale, uint32_t threshold,
+                  float drop_scale, int use_dropout, int seed_group,
+                  cudaStream_t stream) {
+  const size_t smem = bwd_mma_smem_bytes(S, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_mma_kernel<DC, kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_mma_kernel<DC, kFull><<<G, 32 * (mma::pad16(S) >> 4), smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(seeds), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, D,
+      scale, threshold, drop_scale, use_dropout, seed_group);
+  return (int)cudaGetLastError();
+}
+
 size_t dq_smem_bytes(int S, int D) {
   const size_t S_pad = (size_t)round32(S);
   return sizeof(float) * (S_pad * (D + 4) + (size_t)kRows * D + (size_t)kRows * S_pad);
@@ -473,5 +688,34 @@ int fused_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                  use_dropout, seed_group, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// The mma_bf16 body: bfloat16 only, the arguments of fused_attention_bwd
+// without the workspace; S <= 160, D <= 128 and a multiple of 4, and
+// fused_attention_bwd_mma_smem(S, D) within 227 KB, else
+// cudaErrorInvalidValue. One launch.
+int fused_attention_bwd_mma(const void* q, const void* k, const void* v,
+                            const void* bias, const void* seeds, const void* dout,
+                            void* dq, void* dk, void* dv, int G, int H, int S, int D,
+                            float scale, unsigned int threshold, float drop_scale,
+                            int use_dropout, int seed_group, void* stream) {
+  if (S < 1 || S > mma::kMaxS || D < 4 || D > mma::kMaxD || D % 4 != 0 ||
+      bwd_mma_smem_bytes(S, D) > (size_t)mma::kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == 64)
+    return launch_mma_dc<4, true>(q, k, v, bias, seeds, dout, dq, dk, dv, G, H, S, D,
+                                  scale, threshold, drop_scale, use_dropout, seed_group,
+                                  st);
+  if (mma::pad16(D) <= 64)
+    return launch_mma_dc<4, false>(q, k, v, bias, seeds, dout, dq, dk, dv, G, H, S, D,
+                                   scale, threshold, drop_scale, use_dropout, seed_group,
+                                   st);
+  return launch_mma_dc<8, false>(q, k, v, bias, seeds, dout, dq, dk, dv, G, H, S, D,
+                                 scale, threshold, drop_scale, use_dropout, seed_group,
+                                 st);
+}
+
+// dynamic shared memory of one mma_bf16 block (the route rule's formula)
+int fused_attention_bwd_mma_smem(int S, int D) { return (int)bwd_mma_smem_bytes(S, D); }
 
 }  // extern "C"

@@ -3,9 +3,10 @@
 Each library under ``ops/csrc/`` exposes a plain C interface. It is compiled
 with ``nvcc`` for ``sm_90a`` (Hopper) at first use, into ``build/torch_kernels/``
 at the repository root, and loaded with ``ctypes``. The file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time: this module is
-imported on machines without ``nvcc`` or a card.
+hash of the flags and of every file under ``csrc/`` (name and content), so
+an edited or added source or header is rebuilt and a stale library is never
+loaded. Nothing here runs at import time: this module is imported on
+machines without ``nvcc`` or a card.
 
 ``build()`` starts one ``nvcc`` per library, all at once, and waits for them.
 """
@@ -30,9 +31,6 @@ LIBRARIES: Dict[str, tuple] = {
     "fused_attention": ("fused_attention.cu",),
     "fused_attention_bwd": ("fused_attention_bwd.cu",),
 }
-# headers under csrc/ that every source may include; hashed into each
-# library's file name with its sources
-HEADERS = ("attention_common.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,10 +61,17 @@ def _sources(name: str) -> list:
 
 
 def library_path(name: str) -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name) + [os.path.join(CSRC_DIR, f) for f in HEADERS]:
-        with open(src, "rb") as f:
-            h.update(f.read())
+    """Where library ``name`` is built: its name, then a hash of the flags,
+    its sources and every file under ``CSRC_DIR`` (any of which a source may
+    include)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + LIBRARIES[name]).encode())
+    for dirpath, dirs, files in os.walk(CSRC_DIR):
+        dirs.sort()
+        for fname in sorted(files):
+            path = os.path.join(dirpath, fname)
+            h.update(os.path.relpath(path, CSRC_DIR).encode() + b"\0")
+            with open(path, "rb") as f:
+                h.update(f.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:12]))
 
 

@@ -3,8 +3,12 @@ attention kernels and of their backward against the JAX package's Pallas
 kernels and ``jax.grad`` through their custom VJPs (interpret mode on the
 CPU), with and without dropout; the autograd functions against the plain
 backward; the counter hash bit for bit against the numpy replica; the
-block-size policy; and the wrapper's guards. The CUDA kernels themselves run
+block-size policy; the rule that routes a launch to the tensor-core or the
+CUDA-core body; and the wrapper's guards. The CUDA kernels themselves run
 only on the card (chip_smoke.py)."""
+import json
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -13,6 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from meme_challenge_tpu.ops import attention as J
+from meme_challenge_tpu_torch.core.config import TrainConfig
 from meme_challenge_tpu_torch.ops import attention as T
 from test_attention_kernel import _numpy_hash_bits
 
@@ -221,3 +226,148 @@ def test_launch_counts_name_every_kernel():
     assert set(T.LAUNCHES) == {"fused_attention", "fused_attention_blocked",
                                "fused_attention_bwd",
                                "fused_attention_blocked_bwd"}
+
+
+# ------------------------------------------------------------------- routes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _main_path_shape(config):
+    """(S, D) of a configuration's attention on the main path: S = the
+    training defaults' max_txt_len + max_bb, D = hidden / heads."""
+    with open(os.path.join(ROOT, "configs", config)) as f:
+        cfg = json.load(f)
+    train = TrainConfig()
+    return (train.max_txt_len + train.max_bb,
+            cfg["hidden_size"] // cfg["num_attention_heads"])
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("config", ["uniter-base.json", "uniter-large.json"])
+def test_route_main_path_shapes(config, backward):
+    """bf16 at the shipped configurations' shapes (S 160, D 64) takes the
+    tensor-core body in both directions; fp32 the CUDA-core body."""
+    S, D = _main_path_shape(config)
+    assert (S, D) == (160, 64)
+    assert T.attention_route(torch.bfloat16, S, D, backward) == "mma_bf16"
+    assert T.attention_route(torch.float32, S, D, backward) == "cuda_core"
+
+
+# (S, D, backward, route of bf16) on each side of each limit: S <= 160 (the
+# register tile), and the backward's shared memory within 227 KB (D <= 80 at
+# S 160, D 128 up to S 128)
+ROUTE_LIMITS = [
+    (1, 4, False, "mma_bf16"), (1, 4, True, "mma_bf16"),
+    (160, 128, False, "mma_bf16"), (161, 64, False, "cuda_core"),
+    (161, 64, True, "cuda_core"), (256, 128, False, "cuda_core"),
+    (256, 128, True, "cuda_core"), (160, 80, True, "mma_bf16"),
+    (160, 84, True, "cuda_core"), (160, 128, True, "cuda_core"),
+    (128, 128, True, "mma_bf16"), (144, 128, True, "cuda_core"),
+    (17, 16, True, "mma_bf16"), (100, 64, True, "mma_bf16"),
+]
+
+
+@pytest.mark.parametrize("S,D,backward,route", ROUTE_LIMITS,
+                         ids=lambda x: str(x))
+def test_route_limits(S, D, backward, route):
+    assert T.attention_route(torch.bfloat16, S, D, backward) == route
+    assert T.attention_route(torch.float32, S, D, backward) == "cuda_core"
+    fits = T.mma_smem_bytes(S, D, backward) <= T.MAX_SMEM
+    assert (route == "mma_bf16") == (S <= T.MMA_MAX_S and fits)
+
+
+@pytest.mark.parametrize("S,D,backward,nbytes", [
+    # forward: K, V [160][72] and 5 tiles of Q rows [80][72] bf16 + bias
+    (160, 64, False, (2 * 160 + 80) * 72 * 2 + 160 * 4),
+    # backward: Q, K, V, dout [160][72] + pd, ds [160][168] bf16 + bias
+    (160, 64, True, (4 * 160 * 72 + 2 * 160 * 168) * 2 + 160 * 4),
+    # S 17 pads to 16-row tiles: one forward tile, D 16 pads to 16 + 8
+    (17, 16, False, (2 * 32 + 32) * 24 * 2 + 32 * 4),
+])
+def test_mma_smem_bytes_layout(S, D, backward, nbytes):
+    assert T.mma_smem_bytes(S, D, backward) == nbytes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_cpu_tensors_never_consult_the_route(kernel, dtype, monkeypatch):
+    """CPU tensors take the plain versions forward and backward: the route
+    rule is never asked and no launch is counted, by wrapper or by route."""
+    def no_route(*args, **kwargs):
+        raise AssertionError("the route rule was consulted for CPU tensors")
+
+    monkeypatch.setattr(T, "attention_route", no_route)
+    td = getattr(torch, dtype)
+    q, k, v, bias = _inputs(3, 2, 4, 24, 8)
+    leaves = [torch.from_numpy(x).to(td).requires_grad_() for x in (q, k, v)]
+    n_seeds = 2 if kernel == "per_sample" else T.blocked_seed_count(2, 4)
+    seeds = torch.arange(n_seeds, dtype=torch.int32)
+    before = (dict(T.LAUNCHES), dict(T.ROUTE_LAUNCHES))
+    out = KERNELS[kernel][1](*leaves, torch.from_numpy(bias), 0.5, 0.1, seeds)
+    out.float().sum().backward()
+    assert all(leaf.grad is not None for leaf in leaves)
+    assert (T.LAUNCHES, T.ROUTE_LAUNCHES) == before
+
+
+def test_route_launch_counts_name_every_kernel_and_route():
+    assert set(T.ROUTES) == {"mma_bf16", "cuda_core"}
+    assert set(T.ROUTE_LAUNCHES) == {(name, route) for name in T.LAUNCHES
+                                     for route in T.ROUTES}
+
+
+# ------------------------------------------- bf16 at the main path's shape
+
+MAIN = (2, 12, 160, 64)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_plain_bf16_forward_matches_jax_at_main_path_shape(kernel):
+    """The bf16 plain forward against the Pallas kernel (interpret mode) at
+    S 160, D 64 with attention dropout 0.1, as training runs it: within one
+    bf16 ulp of the output (both round p and the output to bf16), and the
+    same dropped probabilities (one-hot v)."""
+    B, H, S, D = MAIN
+    q, k, v, bias = _inputs(1, *MAIN)
+    scale = 1.0 / np.sqrt(D)
+    n_seeds = B if kernel == "per_sample" else J.blocked_seed_count(B, H)
+    seeds = np.random.RandomState(5).randint(
+        0, 2 ** 31 - 1, size=n_seeds).astype(np.int32)
+    jax_fn, torch_fn = KERNELS[kernel]
+
+    def run(v_):
+        ref = jax_fn(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v_)),
+                     jnp.asarray(bias), scale, 0.1, jnp.asarray(seeds))
+        out = torch_fn(*(torch.from_numpy(x).bfloat16() for x in (q, k, v_)),
+                       torch.from_numpy(bias), scale, 0.1,
+                       torch.from_numpy(seeds))
+        assert out.dtype == torch.bfloat16
+        return out.float().numpy(), np.asarray(ref, np.float32)
+
+    out, ref = run(v)
+    np.testing.assert_allclose(out, ref, atol=2e-2, rtol=0)
+    eye = np.zeros_like(v)
+    eye[..., np.arange(D), np.arange(D)] = 1.0
+    p_out, p_ref = run(eye)
+    np.testing.assert_array_equal(p_out == 0, p_ref == 0)
+    assert (p_out == 0).any()
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+def test_plain_bf16_backward_matches_jax_grad_at_main_path_shape(kernel):
+    """The bf16 plain backward against jax.grad of the Pallas kernel's
+    custom VJP at S 160, D 64, dropout 0.1: each gradient within BWD_TOL of
+    its largest magnitude."""
+    B, H, S, D = MAIN
+    q, k, v, bias, do, seeds, group = _bwd_case(2, *MAIN, "bfloat16", kernel)
+    scale = 1.0 / np.sqrt(D)
+    ref = _jax_grads(kernel, q, k, v, bias, do, scale, 0.1, seeds,
+                     "bfloat16")
+    got = T.fused_attention_bwd_plain(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+        torch.from_numpy(bias), torch.from_numpy(do).bfloat16(), scale, 0.1,
+        torch.from_numpy(seeds), group)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        err = np.abs(g.float().numpy() - r).max() / np.abs(r).max()
+        assert err <= BWD_TOL["bfloat16"], err
