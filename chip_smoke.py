@@ -17,20 +17,22 @@ Phases, each of which makes the script exit non-zero if it fails:
    largest magnitude; under dropout exactly the zero positions of the plain
    version (one-hot v windows reveal the forward's dropped probabilities,
    one-hot dout windows the backward's through dv); two backward calls with
-   dropout on give the same bits. Each launch's CUDA body (``mma_bf16`` on
-   the tensor cores, ``cuda_core``) is read from the per-route launch counts
-   and must be the one ``attention_route`` names; the ragged shapes run both
-   bodies in bfloat16, and the rule's shared-memory formula must equal the
-   kernels' own. Times by CUDA events at rate 0 and 0.1: the kernel, its
-   plain version, and torch's scaled_dot_product_attention (forward, or
-   backward through autograd) as a yardstick the port never calls, beside
-   the least time the card could take (the bound). ptxas's registers,
-   spills and shared memory of every kernel are printed after the build.
+   dropout on give the same bits. Each launch's CUDA body (``mma_bf16`` and
+   ``mma_tf32x3`` on the tensor cores, ``cuda_core``) is read from the
+   per-route launch counts and must be the one ``attention_route`` names;
+   the ragged shapes run both bodies of each dtype, and the rule's
+   shared-memory formulas must equal the kernels' own. Times by CUDA events
+   at rate 0 and 0.1: the kernel, its plain version, and torch's
+   scaled_dot_product_attention (forward, or backward through autograd) as
+   a yardstick the port never calls (with its own error against the plain
+   version), beside the least time the card could take (the bound; float32
+   at three TF32 products a product). ptxas's registers, spills and shared
+   memory of every kernel are printed after the build.
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
    the launch counts (12 layers × eval batches, every bfloat16 launch on
-   ``mma_bf16`` and every float32 one on ``cuda_core``), and one batch's
+   ``mma_bf16`` and every float32 one on ``mma_tf32x3``), and one batch's
    float32 logits on the card against the CPU (plain versions) within 1e-4.
 5. Train phase: full-width UNITER-base fine-tunes through the same CLI (the
    README recipe with ``--num_folds 0``, 2 epochs, dropout 0.1): the
@@ -64,9 +66,12 @@ PACKAGE = os.path.join(ROOT, "meme_challenge_tpu_torch")
 B, H, S, D = 16, 12, 160, 64
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LOGIT_TOL = 1e-4
-# H100 SXM data sheet (dense): memory bytes/s, and operations/s by type
+# H100 SXM data sheet (dense): memory bytes/s, and operations/s by type.
+# float32 at fp32 accuracy is at best three TF32 products a product (the
+# 3×TF32 split of the mma_tf32x3 bodies) at 495 TFLOP/s: the least time any
+# body could take for the work, whichever body runs it.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 REPLACES = {
     "fused_attention": "meme_challenge_tpu/ops/attention.py:96",
     "fused_attention_blocked": "meme_challenge_tpu/ops/attention.py:265",
@@ -168,10 +173,11 @@ def attention_inputs(torch, dtype, gen, batch=B):
 
 
 # off the main path: S not a multiple of 16 or 32, D not a multiple of 16,
-# the largest S and D the kernels take; for bf16 both routes in both
-# directions (attention_route): S 24, 100, 17, 150 and 160 at D 80 take
-# mma_bf16 everywhere, S 160 at D 128 mma_bf16 forward and cuda_core
-# backward (shared memory), S 176 and 256 cuda_core
+# the largest S and D the kernels take; each dtype's two routes in both
+# directions (attention_route): S 24, 100, 17, 150 take the tensor-core body
+# everywhere; S 160 at D 80 too in bf16, and in fp32 forward only (the fp32
+# backward takes D <= 64); S 160 at D 128 the tensor-core forward and the
+# cuda_core backward (bf16: shared memory); S 176 and 256 cuda_core
 RAGGED = ((2, 3, 24, 8), (3, 4, 100, 64), (2, 2, 256, 128), (2, 12, 17, 16),
           (2, 4, 150, 64), (1, 2, 160, 80), (2, 4, 160, 128), (2, 3, 176, 64))
 
@@ -202,18 +208,28 @@ def route_taken(A, name, fn):
     return out, taken[0]
 
 
+# the two bodies each dtype can take
+DTYPE_ROUTES = {"bfloat16": {"mma_bf16", "cuda_core"},
+                "float32": {"mma_tf32x3", "cuda_core"}}
+
+
 def check_routes(torch, A, name, taken, backward) -> None:
     """The routes ``taken`` ({(shape, dtype): route}) match attention_route,
-    and bf16 took both."""
+    and each dtype took both of its routes."""
     for (shape, dtype), route in taken.items():
         want = A.attention_route(getattr(torch, dtype), shape[2], shape[3],
                                  backward)
         if route != want:
             fail("%s %s at %s took %s, the rule says %s"
                  % (name, dtype, shape, route, want))
-    bf16 = {r for (_, dtype), r in taken.items() if dtype == "bfloat16"}
-    if bf16 != set(A.ROUTES):
-        fail("%s: bf16 took only %s, expected both routes" % (name, bf16))
+    for dtype, routes in DTYPE_ROUTES.items():
+        got = {r for (_, dt), r in taken.items() if dt == dtype}
+        if got != routes:
+            fail("%s: %s took %s, expected %s" % (name, dtype, got, routes))
+
+
+def routes_by_shape(taken) -> dict:
+    return {"%s %s" % (dt, shape[2:]): r for (shape, dt), r in taken.items()}
 
 
 def ragged_checks(torch, A, gen) -> None:
@@ -244,9 +260,8 @@ def ragged_checks(torch, A, gen) -> None:
                                        taken[(shape, dtype)], err))
         check_routes(torch, A, name, taken, backward=False)
         log("kernel %s at shapes %s, fp32 and bf16, rate 0 and 0.1: agrees "
-            "with its plain version; bf16 routes %s" % (name, RAGGED, {
-                shape[2:]: r for (shape, dt), r in taken.items()
-                if dt == "bfloat16"}))
+            "with its plain version; routes %s"
+            % (name, RAGGED, routes_by_shape(taken)))
     torch.cuda.synchronize()
 
 
@@ -301,9 +316,8 @@ def bwd_ragged_checks(torch, A, gen) -> None:
                                              taken[(shape, dtype)], rel))
         check_routes(torch, A, name, taken, backward=True)
         log("kernel %s at shapes %s, fp32 and bf16, rate 0 and 0.1: agrees "
-            "with the plain backward; bf16 routes %s" % (name, RAGGED, {
-                shape[2:]: r for (shape, dt), r in taken.items()
-                if dt == "bfloat16"}))
+            "with the plain backward; routes %s"
+            % (name, RAGGED, routes_by_shape(taken)))
     torch.cuda.synchronize()
 
 
@@ -393,19 +407,26 @@ def bwd_kernel_phase(torch, A, gen) -> dict:
                     scale=scale)
                 lib[r], _ = device_ms(lambda: torch.autograd.grad(
                     lib_out, lib_leaves, do, retain_graph=True))
+                if r == 0.0:  # the library's own error at these shapes
+                    lib_err, lib_rel = _rel_err(torch, torch.autograd.grad(
+                        lib_out, lib_leaves, do, retain_graph=True),
+                        A.fused_attention_bwd_plain(q, k, v, bias, do, scale,
+                                                    0.0, None, group(B, H)))
             bound_ms, bound_by = attention_bwd_bound_ms(dtype, B)
             log("kernel %s %s (%s): max_abs_err %.3g repeat_identical=%s | "
                 "ms=%.4f ms_rate%.1f=%.4f plain_ms=%.4f library_ms=%.4f "
                 "library_ms_rate%.1f=%.4f bound_ms=%.4f (%s) "
-                "wrapper_host_ms=%.4f"
+                "wrapper_host_ms=%.4f | library against the plain backward: "
+                "max_abs_err %.3g, relative %.3g"
                 % (name, dtype, route, abs_err, repeat_identical, ms["t"],
                    rate, ms_drop["t"], plain_ms, lib[0.0], rate, lib[rate],
-                   bound_ms, bound_by, host_ms))
+                   bound_ms, bound_by, host_ms, lib_err, lib_rel))
             results[(name, dtype)] = dict(
                 route=route, max_abs_err=abs_err, ms=ms["t"],
                 ms_dropout=ms_drop["t"], plain_ms=plain_ms,
                 library_ms=lib[0.0], library_ms_dropout=lib[rate],
-                bound_ms=bound_ms, bound_by=bound_by)
+                library_max_abs_err=lib_err, bound_ms=bound_ms,
+                bound_by=bound_by)
     return results
 
 
@@ -418,13 +439,17 @@ def smem_rule_check(A) -> None:
              % (A.MMA_MAX_S, fwd.fused_attention_mma_max_s()))
     for s in (1, 17, 24, 100, 128, 150, 160):
         for d in (4, 8, 16, 20, 64, 80, 128):
-            for c_fn, backward in ((fwd.fused_attention_mma_smem, False),
-                                   (bwd.fused_attention_bwd_mma_smem, True)):
-                if c_fn(s, d) != A.mma_smem_bytes(s, d, backward):
-                    fail("mma_smem_bytes(%d, %d, backward=%s) = %d, the "
-                         "kernel's %d" % (s, d, backward,
-                                          A.mma_smem_bytes(s, d, backward),
-                                          c_fn(s, d)))
+            for c_fn, py_fn, backward in (
+                    (fwd.fused_attention_mma_smem, A.mma_smem_bytes, False),
+                    (bwd.fused_attention_bwd_mma_smem, A.mma_smem_bytes,
+                     True),
+                    (fwd.fused_attention_tf32_smem, A.tf32_smem_bytes, False),
+                    (bwd.fused_attention_bwd_tf32_smem, A.tf32_smem_bytes,
+                     True)):
+                if c_fn(s, d) != py_fn(s, d, backward):
+                    fail("%s(%d, %d, backward=%s) = %d, the kernel's %d"
+                         % (py_fn.__name__, s, d, backward,
+                            py_fn(s, d, backward), c_fn(s, d)))
     log("route rule: shared-memory formula and limits equal the kernels'")
 
 
@@ -478,24 +503,33 @@ def kernel_phase(torch) -> dict:
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, dropout_p=r, scale=scale))[0]
                 for r in (0.0, rate)}
+            lib_err = (torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale).float()
+                - ref.float()).abs().max().item()
             bound_ms, bound_by = attention_bound_ms(dtype)
             log("kernel %s %s (%s): max_abs_err rate0=%.3g rate%.1f=%.3g "
                 "(tol %g) zero_positions_equal=%s dropped_share=%.4f | "
                 "ms=%.4f ms_rate%.1f=%.4f plain_ms=%.4f library_ms=%.4f "
                 "library_ms_rate%.1f=%.4f bound_ms=%.4f (%s) "
-                "wrapper_host_ms=%.4f"
+                "wrapper_host_ms=%.4f | library against the plain version: "
+                "max_abs_err %.3g"
                 % (name, dtype, route, err0, rate, err_d, tol, zeros_equal,
                    dropped / max(total, 1), ms, rate, ms_drop, plain_ms,
-                   lib[0.0], rate, lib[rate], bound_ms, bound_by, host_ms))
+                   lib[0.0], rate, lib[rate], bound_ms, bound_by, host_ms,
+                   lib_err))
             if not ok:
                 fail("kernel %s %s disagrees with its plain version"
                      % (name, dtype))
             results[(name, dtype)] = dict(
                 route=route, max_abs_err=max(err0, err_d), ms=ms,
                 ms_dropout=ms_drop, plain_ms=plain_ms, library_ms=lib[0.0],
-                library_ms_dropout=lib[rate], bound_ms=bound_ms,
-                bound_by=bound_by)
+                library_ms_dropout=lib[rate], library_max_abs_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by)
     results.update(bwd_kernel_phase(torch, A, gen))
+    for (name, dtype), r in results.items():
+        if r["route"] != main_path_route(dtype):
+            fail("%s %s took %s at the main path's shape"
+                 % (name, dtype, r["route"]))
     return results
 
 
@@ -580,8 +614,8 @@ def reset_launches(A) -> None:
 
 def main_path_route(dtype: str) -> str:
     """The route every launch of the UNITER-base main path (S 160, D 64)
-    takes: mma_bf16 in bfloat16, cuda_core in float32."""
-    return "mma_bf16" if dtype == "bfloat16" else "cuda_core"
+    takes: the tensor-core body of its dtype."""
+    return "mma_bf16" if dtype == "bfloat16" else "mma_tf32x3"
 
 
 def check_route_counts(A, tag: str, dtype: str, names) -> dict:
@@ -1069,9 +1103,6 @@ def main(argv) -> None:
     # counted launches went through (check_route_counts)
     entries = []
     for (name, dtype), r in kernels.items():
-        if r["route"] != main_path_route(dtype):
-            fail("%s %s took %s at the main path's shape"
-                 % (name, dtype, r["route"]))
         entries.append({
             "name": "%s[%s]" % (name, dtype), "route": "cuda",
             "body": r["route"], "source": SOURCE[name],
@@ -1080,7 +1111,8 @@ def main(argv) -> None:
             "ms_dropout": r["ms_dropout"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "library_ms_dropout": r["library_ms_dropout"]})
+            "library_ms_dropout": r["library_ms_dropout"],
+            "library_max_abs_err": r["library_max_abs_err"]})
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

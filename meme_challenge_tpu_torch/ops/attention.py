@@ -23,14 +23,18 @@ recomputes them.
   for bit. The TPU's hardware PRNG stream is not reproduced.
 - The custom-VJP rules (``_fwd_rule``/``_bwd_rule`` and the blocked pair)
   become a ``torch.autograd.Function`` per wrapper. It saves q, k, v, the
-  bias rows and the seeds (never P or the mask); its backward launches the
+  bias rows and the seeds (never P or the mask; on the ``mma_tf32x3`` route
+  also the output and its row statistics); its backward launches the
   backward kernel for CUDA tensors and :func:`fused_attention_bwd_plain` for
   CPU tensors. The bias and the seeds get no gradient.
-- Each CUDA source holds two bodies, and :func:`attention_route`, a pure
+- Each CUDA source holds three bodies, and :func:`attention_route`, a pure
   function of (dtype, S, D), picks one for a launch: ``mma_bf16``
-  (bfloat16 on the tensor cores, ``mma.sync``) where its register tile and
-  shared memory hold the shape, else ``cuda_core`` (fp32 math on the CUDA
-  cores; float32 always).
+  (bfloat16 on the tensor cores, ``mma.sync``) and ``mma_tf32x3`` (float32
+  on the tensor cores, three TF32 products a product) where their register
+  tile and shared memory hold the shape, else ``cuda_core`` (fp32 math on
+  the CUDA cores). On the ``mma_tf32x3`` route the forward also writes each
+  row's max and sum of exp, and the autograd function saves them with the
+  output for the backward's single launch.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, forward and backward;
 ``ROUTE_LAUNCHES`` the same launches by (wrapper, route).
@@ -45,7 +49,7 @@ import torch
 
 LAUNCHES = {"fused_attention": 0, "fused_attention_blocked": 0,
             "fused_attention_bwd": 0, "fused_attention_blocked_bwd": 0}
-ROUTES = ("mma_bf16", "cuda_core")
+ROUTES = ("mma_bf16", "mma_tf32x3", "cuda_core")
 ROUTE_LAUNCHES = {(name, route): 0 for name in LAUNCHES
                   for route in ROUTES}
 
@@ -80,16 +84,42 @@ def mma_smem_bytes(S: int, D: int, backward: bool = False) -> int:
     return 2 * elems + 4 * s_pad
 
 
+TF32_BWD_MAX_D = 64  # dk and dv of a warp's 16 keys held in registers
+TF32_CHUNK = 32      # query rows the backward block takes a step
+
+
+def tf32_smem_bytes(S: int, D: int, backward: bool = False) -> int:
+    """Dynamic shared memory of one ``mma_tf32x3`` block, fp32 throughout.
+    Forward: K and the block's Q rows padded to ``pad16(D) + 8``, V to
+    ``pad16(D) + 4``, the bias row. Backward: K, V and two stages of the Q
+    and dout chunks (``TF32_CHUNK`` rows) padded to ``pad16(D) + 4``, the dS
+    chunk ``[TF32_CHUNK][pad16(S) + 8]``, and five rows of ``pad16(S)`` (bias,
+    each query's max, sum of exp, its reciprocal and Δ)."""
+    s_pad, d_pad = _pad16(S), _pad16(D)
+    if backward:
+        floats = ((2 * s_pad + 4 * TF32_CHUNK) * (d_pad + 4)
+                  + TF32_CHUNK * (s_pad + 8) + 5 * s_pad)
+    else:
+        q_rows = 16 * min(MMA_FWD_TILES, s_pad // 16)
+        floats = ((s_pad + q_rows) * (d_pad + 8) + s_pad * (d_pad + 4)
+                  + s_pad)
+    return 4 * floats
+
+
 def attention_route(dtype: torch.dtype, S: int, D: int,
                     backward: bool = False) -> str:
-    """The CUDA body a launch on ``[B, H, S, D]`` tensors of ``dtype`` takes:
-    ``"mma_bf16"`` for bfloat16 with S <= 160, D <= 128 and the block's
-    shared memory (:func:`mma_smem_bytes`) within 227 KB, else
-    ``"cuda_core"``. float32 always takes ``"cuda_core"``: its 1e-5 parity
-    leaves no room for bf16 or TF32 products. Depends on the shape alone."""
-    if (dtype == torch.bfloat16 and S <= MMA_MAX_S and D <= MMA_MAX_D
-            and mma_smem_bytes(S, D, backward) <= MAX_SMEM):
+    """The CUDA body a launch on ``[B, H, S, D]`` tensors of ``dtype`` takes,
+    from the shape alone: with S <= 160, D <= 128 (the float32 backward:
+    D <= 64) and the block's shared memory within 227 KB, ``"mma_bf16"`` for
+    bfloat16 (:func:`mma_smem_bytes`) and ``"mma_tf32x3"`` for float32
+    (:func:`tf32_smem_bytes`); else ``"cuda_core"``."""
+    if S > MMA_MAX_S or D > MMA_MAX_D:
+        return "cuda_core"
+    if dtype == torch.bfloat16 and mma_smem_bytes(S, D, backward) <= MAX_SMEM:
         return "mma_bf16"
+    if (dtype == torch.float32 and (not backward or D <= TF32_BWD_MAX_D)
+            and tf32_smem_bytes(S, D, backward) <= MAX_SMEM):
+        return "mma_tf32x3"
     return "cuda_core"
 
 
@@ -275,9 +305,15 @@ def _bwd_lib():
             i, vp]
         lib.fused_attention_bwd_mma.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+        lib.fused_attention_bwd_tf32.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i,
+            i, vp]
         lib.fused_attention_bwd_mma_smem.argtypes = [i, i]
+        lib.fused_attention_bwd_tf32_smem.argtypes = [i, i]
         for fn in (lib.fused_attention_bwd, lib.fused_attention_bwd_mma,
-                   lib.fused_attention_bwd_mma_smem):
+                   lib.fused_attention_bwd_tf32,
+                   lib.fused_attention_bwd_mma_smem,
+                   lib.fused_attention_bwd_tf32_smem):
             fn.restype = i
         lib.typed = True
     return lib
@@ -294,12 +330,16 @@ def _lib():
             i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
         lib.fused_attention_fwd_mma.argtypes = [
             vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+        lib.fused_attention_fwd_tf32.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
         lib.fused_attention_mma_smem.argtypes = [i, i]
+        lib.fused_attention_tf32_smem.argtypes = [i, i]
         for fn in (lib.fused_attention_max_s, lib.fused_attention_max_d,
                    lib.fused_attention_mma_max_s):
             fn.argtypes = []
         for fn in (lib.fused_attention_fwd, lib.fused_attention_fwd_mma,
-                   lib.fused_attention_mma_smem, lib.fused_attention_max_s,
+                   lib.fused_attention_fwd_tf32, lib.fused_attention_mma_smem,
+                   lib.fused_attention_tf32_smem, lib.fused_attention_max_s,
                    lib.fused_attention_max_d, lib.fused_attention_mma_max_s):
             fn.restype = i
         lib.max_s = lib.fused_attention_max_s()
@@ -338,36 +378,48 @@ def _check(q, k, v, bias, extra=()):
     return lib
 
 
-def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group):
+def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group, want_stats):
     """Forward kernel on [B, H, S, D] CUDA tensors; ``bias_rows`` [B, S]
     fp32, ``seeds`` int32 (read only with dropout on). Returns (out, the
-    route taken)."""
+    route taken, the row statistics ``[2, B·H, S]`` fp32 that the
+    ``mma_tf32x3`` route writes when ``want_stats``, else None)."""
     lib = _check(q, k, v, bias_rows)
     B, H, S, D = q.shape
     route = attention_route(q.dtype, S, D)
     dropout = rate > 0.0
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(),
-            seeds.data_ptr() if dropout else None, out.data_ptr(), B * H, H,
-            S, D, float(scale), _threshold(rate),
-            _dropout_scale(rate) if dropout else 1.0, int(dropout),
-            seed_group)
+    stats = None
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(),
+              seeds.data_ptr() if dropout else None, out.data_ptr())
+    shape = (B * H, H, S, D, float(scale), _threshold(rate),
+             _dropout_scale(rate) if dropout else 1.0, int(dropout),
+             seed_group)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "mma_bf16":
-            err = lib.fused_attention_fwd_mma(*args, stream)
+            err = lib.fused_attention_fwd_mma(*inputs, *shape, stream)
+        elif route == "mma_tf32x3":
+            if want_stats:
+                stats = torch.empty((2, B * H, S), dtype=torch.float32,
+                                    device=q.device)
+            err = lib.fused_attention_fwd_tf32(
+                *inputs, stats.data_ptr() if want_stats else None, *shape,
+                stream)
         else:
-            err = lib.fused_attention_fwd(_DTYPE_CODE[q.dtype], *args, stream)
+            err = lib.fused_attention_fwd(_DTYPE_CODE[q.dtype], *inputs,
+                                          *shape, stream)
     if err != 0:
         raise RuntimeError("fused_attention_fwd (%s) launch failed: CUDA "
                            "error %d" % (route, err))
-    return out, route
+    return out, route, stats
 
 
-def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group):
+def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group,
+                out=None, stats=None):
     """Backward kernel on [B, H, S, D] CUDA tensors: one launch on the
-    ``mma_bf16`` route, two (with a ``[3, B·H, S]`` fp32 workspace) on
-    ``cuda_core``. Returns (dq, dk, dv, the route taken)."""
+    ``mma_bf16`` and ``mma_tf32x3`` routes (the latter from the forward's
+    ``out`` and row statistics), two (with a ``[3, B·H, S]`` fp32 workspace)
+    on ``cuda_core``. Returns (dq, dk, dv, the route taken)."""
     _check(q, k, v, bias_rows, extra=(("do", do),))
     B, H, S, D = q.shape
     lib = _bwd_lib()
@@ -375,20 +427,28 @@ def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group):
     dropout = rate > 0.0
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(),
-              seeds.data_ptr() if dropout else None, do.data_ptr(),
-              dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+              seeds.data_ptr() if dropout else None, do.data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     shape = (B * H, H, S, D, float(scale), _threshold(rate),
              _dropout_scale(rate) if dropout else 1.0, int(dropout),
              seed_group)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "mma_bf16":
-            err = lib.fused_attention_bwd_mma(*inputs, *shape, stream)
+            err = lib.fused_attention_bwd_mma(*inputs, *grads, *shape, stream)
+        elif route == "mma_tf32x3":
+            if stats is None:
+                raise RuntimeError("the mma_tf32x3 backward needs the row "
+                                   "statistics of an mma_tf32x3 forward")
+            err = lib.fused_attention_bwd_tf32(
+                *inputs, out.data_ptr(), stats.data_ptr(), *grads, *shape,
+                stream)
         else:
-            stats = torch.empty((3, B * H, S), dtype=torch.float32,
-                                device=q.device)
+            ws = torch.empty((3, B * H, S), dtype=torch.float32,
+                             device=q.device)
             err = lib.fused_attention_bwd(_DTYPE_CODE[q.dtype], *inputs,
-                                          stats.data_ptr(), *shape, stream)
+                                          *grads, ws.data_ptr(), *shape,
+                                          stream)
     if err != 0:
         raise RuntimeError("fused_attention_bwd (%s) launch failed: CUDA "
                            "error %d" % (route, err))
@@ -398,32 +458,37 @@ def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group):
 class _FusedAttention(torch.autograd.Function):
     """Custom VJP of both wrappers (JAX ``_fwd_rule``/``_bwd_rule`` and
     ``_blk_fwd_rule``/``_blk_bwd_rule``): CUDA tensors launch the kernels,
-    CPU tensors take the plain versions. ``name`` keys ``LAUNCHES``."""
+    CPU tensors take the plain versions. ``name`` keys ``LAUNCHES``. On the
+    ``mma_tf32x3`` route the output and the row statistics are saved too."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_rows, seeds, scale, rate, seed_group,
                 name):
         ctx.scale, ctx.rate, ctx.seed_group, ctx.name = (scale, rate,
                                                          seed_group, name)
-        ctx.save_for_backward(q, k, v, bias_rows, seeds)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias_rows, seeds)
             return _attention_plain(q, k, v, bias_rows, scale, rate, seeds,
                                     seed_group)
-        out, route = _launch(q, k, v, bias_rows, scale, rate, seeds,
-                             seed_group)
+        out, route, stats = _launch(q, k, v, bias_rows, scale, rate, seeds,
+                                    seed_group, any(ctx.needs_input_grad[:3]))
+        if stats is None:
+            ctx.save_for_backward(q, k, v, bias_rows, seeds)
+        else:
+            ctx.save_for_backward(q, k, v, bias_rows, seeds, out, stats)
         LAUNCHES[name] += 1
         ROUTE_LAUNCHES[(name, route)] += 1
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias_rows, seeds = ctx.saved_tensors
+        q, k, v, bias_rows, seeds, *saved = ctx.saved_tensors
         do = do.contiguous()
         args = (ctx.scale, ctx.rate, seeds, ctx.seed_group)
         if q.device.type == "cpu":
             grads = fused_attention_bwd_plain(q, k, v, bias_rows, do, *args)
         else:
-            *grads, route = _launch_bwd(q, k, v, bias_rows, do, *args)
+            *grads, route = _launch_bwd(q, k, v, bias_rows, do, *args, *saved)
             name = ctx.name + "_bwd"
             LAUNCHES[name] += 1
             ROUTE_LAUNCHES[(name, route)] += 1

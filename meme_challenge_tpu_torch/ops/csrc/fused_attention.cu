@@ -18,15 +18,16 @@
 //
 // Bound at the UNITER-base main path (B 16, H 12, S 160, D 64), from the data
 // sheet: q, k, v and out are 4 × 1.97 M elements (31.5 MB fp32, 15.7 MB bf16);
-// the two products are 1.26 GFLOP. fp32 on the CUDA cores (67 TFLOP/s): ≈ 19 µs,
-// bound by operations. bf16 (989 TFLOP/s on the tensor cores, 3.35 TB/s): ≈ 4.7 µs,
-// bound by bytes.
+// the two products are 1.26 GFLOP. fp32 at fp32 accuracy is at best three TF32
+// products (495 / 3 TFLOP/s): ≈ 9.4 µs, bound by bytes. bf16 (989 TFLOP/s on
+// the tensor cores, 3.35 TB/s): ≈ 4.7 µs, bound by bytes.
 //
-// Two bodies; the route is a pure function of (dtype, S, D), the same as
+// Three bodies; the route is a pure function of (dtype, S, D), the same as
 // ops/attention.py: attention_route:
-//   mma_bf16  (attn_fwd_mma_kernel): bfloat16 with S <= 160 (mma::kMaxS),
-//             D <= 128 — every shape whose scores fit the register tile.
-//   cuda_core (attn_fwd_kernel): float32 always, bfloat16 beyond that.
+//   mma_bf16   (attn_fwd_mma_kernel): bfloat16 with S <= 160 (mma::kMaxS),
+//              D <= 128 — every shape whose scores fit the register tile.
+//   mma_tf32x3 (attn_fwd_tf32_kernel): float32 within the same limits.
+//   cuda_core  (attn_fwd_kernel): either dtype beyond them.
 // The route never depends on a failure: a launch that fails returns its
 // error, and nothing falls back.
 //
@@ -55,8 +56,20 @@
 // exp, the division and, under dropout, ~13 integer operations of the hash
 // for each of the 25,600 scores of a pair.
 //
-// cuda_core body: fp32 math on the CUDA cores (the fp32 path must match the
-// plain version to 1e-5, so no TF32; bf16 inputs are widened to fp32, which
+// mma_tf32x3 body: the mma_bf16 body's layout and softmax in fp32, with
+// 3×TF32 products on mma.sync m16n8k8 (mma_tf32.cuh: one TF32 product misses
+// the fp32 path's 1e-5 parity, the split holds it). K, V and the block's Q
+// rows are fp32 in shared memory (113 KB at S 160, D 64: two blocks an SM),
+// staged in three cp.async groups (Q and the first half of the keys, the
+// second half, V) so that each lands while the block computes on the one
+// before; Q·Kᵀ reads Q and K as 8-byte pairs (rows padded to D_pad + 8), P·V
+// reads V across rows (padded to D_pad + 4), each 8-key accumulator tile of p
+// is the next A operand as it stands. The operands are split into TF32 pairs
+// in registers as they are loaded. With a non-null `stats` it also writes
+// each row's max and sum of exp, which the backward's one launch rebuilds p
+// from. Of 5 and 10 query tiles a block, 5 measured faster on the H100.
+//
+// cuda_core body: fp32 math on the CUDA cores (no TF32; bf16 inputs are widened to fp32, which
 // is what XLA's bf16 product with fp32 accumulation computes). One block per
 // (pair, tile of 32 query rows), 8 warps; each warp owns 4 query rows end to
 // end, so the softmax needs no block-wide barrier:
@@ -80,6 +93,7 @@
 
 #include "attention_common.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -384,6 +398,162 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------------------------- mma_tf32x3
+
+// K and the block's Q rows as fp32 [rows][D_pad + 8] (pair-map loads), V as
+// fp32 [S_pad][D_pad + 4] (read across rows), the fp32 bias row [S_pad]
+size_t tf32_smem_bytes(int S, int D) {
+  const size_t S_pad = mma::pad16(S), D_pad = mma::pad16(D);
+  return ((S_pad + 16 * (size_t)fwd_tiles(S)) * (D_pad + 8) + S_pad * (D_pad + 4) + S_pad) *
+         sizeof(float);
+}
+
+// The float32 body on the tensor cores: attn_fwd_mma_kernel's layout with
+// 3×TF32 products (mma_tf32.cuh). `stats`, when not null, receives each
+// row's max and sum of exp(s − max) ([2, G, S]) for the backward.
+template <int DC, bool kFull>
+__global__ void __launch_bounds__(kFwdTiles * 32, 2)
+attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     const int32_t* __restrict__ seeds, float* __restrict__ out,
+                     float* __restrict__ stats, int G, int H, int S, int D, float scale,
+                     uint32_t threshold, float drop_scale, int use_dropout,
+                     int seed_group) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S_pad = kFull ? 16 * kKeyChunks : pad16(S);
+  const int D_pad = kFull ? 16 * DC : pad16(D);
+  const int ldk = D_pad + 8, ldv = D_pad + 4;
+  const int n_kc = S_pad >> 4, n_dc = D_pad >> 4;
+  const int q_rows = kFull ? 16 * kFwdTiles : blockDim.x >> 1;   // 16 per warp
+  float* k_s = reinterpret_cast<float*>(smem_raw);
+  float* q_s = k_s + S_pad * ldk;
+  float* v_s = q_s + q_rows * ldk;
+  float* bias_s = v_s + S_pad * ldv;
+
+  const int g = blockIdx.x;                 // (sample, head) pair
+  const int row0 = blockIdx.y * q_rows;     // the block's first query row
+  const int lane = threadIdx.x & 31;
+  const int m0 = (threadIdx.x >> 5) * 16;   // the warp's 16 rows within q_s
+  const size_t base = (size_t)g * S * D;
+  // Q and the first half of the keys, the second half, then V: each lands
+  // while the block computes on the one before
+  const int half = 16 * ((n_kc + 1) >> 1);
+  stage_async_f32(q_s, ldk, q + base + (size_t)row0 * D, min(q_rows, S - row0), q_rows,
+                  D, D_pad);
+  stage_async_f32(k_s, ldk, k + base, min(S, half), half, D, D_pad);
+  cp_async_commit();
+  stage_async_f32(k_s + half * ldk, ldk, k + base + (size_t)half * D, S - half,
+                  S_pad - half, D, D_pad);
+  cp_async_commit();
+  stage_async_f32(v_s, ldv, v + base, S, S_pad, D, D_pad);
+  cp_async_commit();
+  stage_bias(bias_s, bias + (size_t)(g / H) * S, S, S_pad);
+
+  // s = Q·Kᵀ, every key of the warp's 16 rows, pair map over d
+  float p[2 * kKeyChunks][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * kKeyChunks; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[nt][r] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h == 0) cp_async_wait<2>();
+    else cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < 2 * DC; ++kd) {
+      if (kd < 2 * n_dc) {
+        FragA a;
+        load_a_pair(a, q_s, ldk, m0, 8 * kd, lane);
+#pragma unroll
+        for (int nt = 0; nt < 2 * kKeyChunks; ++nt) {
+          if (nt < 2 * n_kc && (nt < half / 8) == (h == 0)) {
+            FragB b;
+            load_b_nk_pair(b, k_s, ldk, 8 * nt, 8 * kd, lane);
+            mma_3xtf32(p[nt], a, b);
+          }
+        }
+      }
+    }
+  }
+  float mx[2], sum[2];
+  softmax_scores(p, bias_s, n_kc, scale, lane, mx, sum);
+  if (stats != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + m0 + acc_row(lane, 2 * h);
+      if (i < S) {
+        stats[(size_t)g * S + i] = mx[h];
+        stats[((size_t)G + g) * S + i] = sum[h];
+      }
+    }
+  }
+  if (use_dropout) {
+    const uint32_t seed = (uint32_t)seeds[g / seed_group];
+    const uint32_t idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+#pragma unroll
+    for (int nt = 0; nt < 2 * kKeyChunks; ++nt) {
+      if (nt < 2 * n_kc) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t i = row0 + m0 + acc_row(lane, r), j = 8 * nt + acc_col(lane, r);
+          const bool keep =
+              hash_bits(idx_base + i * (uint32_t)S + j, seed) >= threshold;
+          p[nt][r] = keep ? p[nt][r] * drop_scale : 0.f;
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // V is in shared memory
+
+  // out = p·V; each 8-key accumulator tile of p is the A operand as it stands
+  float o[2 * DC][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * DC; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[nt][r] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < 2 * kKeyChunks; ++kt) {
+    if (kt < 2 * n_kc) {
+      FragA a;
+      a_from_acc(a, p[kt]);
+#pragma unroll
+      for (int dn = 0; dn < 2 * DC; ++dn) {
+        if (dn < 2 * n_dc) {
+          FragB b;
+          load_b_kn_pair(b, v_s, ldv, 8 * kt, 8 * dn, lane);
+          mma_3xtf32(o[dn], a, b);
+        }
+      }
+    }
+  }
+  store_rows_f32(out + base, o, row0 + m0, 0, S, D, 1.f, lane);
+}
+
+template <int DC, bool kFull>
+int launch_tf32_dc(const void* q, const void* k, const void* v, const void* bias,
+                   const void* seeds, void* out, void* stats, int G, int H, int S, int D,
+                   float scale, uint32_t threshold, float drop_scale, int use_dropout,
+                   int seed_group, cudaStream_t stream) {
+  const size_t smem = tf32_smem_bytes(S, D);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_tf32_kernel<DC, kFull>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = fwd_tiles(S);
+  const dim3 grid(G, ((mma::pad16(S) >> 4) + tiles - 1) / tiles);
+  attn_fwd_tf32_kernel<DC, kFull><<<grid, 32 * tiles, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(seeds), static_cast<float*>(out),
+      static_cast<float*>(stats), G, H, S, D, scale, threshold, drop_scale, use_dropout,
+      seed_group);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -437,5 +607,30 @@ int fused_attention_fwd_mma(const void* q, const void* k, const void* v,
 int fused_attention_mma_max_s(void) { return mma::kMaxS; }
 // dynamic shared memory of one mma_bf16 block (the route rule's formula)
 int fused_attention_mma_smem(int S, int D) { return (int)mma_smem_bytes(S, D); }
+
+// The mma_tf32x3 body: float32 only, the arguments of fused_attention_fwd_mma
+// plus `stats` (null, or [2, G, S] fp32 receiving each row's max and sum of
+// exp for the backward) and G; S <= 160, D <= 128 and a multiple of 4, else
+// cudaErrorInvalidValue.
+int fused_attention_fwd_tf32(const void* q, const void* k, const void* v,
+                             const void* bias, const void* seeds, void* out, void* stats,
+                             int G, int H, int S, int D, float scale,
+                             unsigned int threshold, float drop_scale, int use_dropout,
+                             int seed_group, void* stream) {
+  if (S < 1 || S > mma::kMaxS || D < 4 || D > mma::kMaxD || D % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == 64)
+    return launch_tf32_dc<4, true>(q, k, v, bias, seeds, out, stats, G, H, S, D, scale,
+                                   threshold, drop_scale, use_dropout, seed_group, st);
+  if (mma::pad16(D) <= 64)
+    return launch_tf32_dc<4, false>(q, k, v, bias, seeds, out, stats, G, H, S, D, scale,
+                                    threshold, drop_scale, use_dropout, seed_group, st);
+  return launch_tf32_dc<8, false>(q, k, v, bias, seeds, out, stats, G, H, S, D, scale,
+                                  threshold, drop_scale, use_dropout, seed_group, st);
+}
+
+// dynamic shared memory of one mma_tf32x3 block (the route rule's formula)
+int fused_attention_tf32_smem(int S, int D) { return (int)tf32_smem_bytes(S, D); }
 
 }  // extern "C"

@@ -19,16 +19,17 @@
 //
 // Bound at the UNITER-base main path (B 16, H 12, S 160, D 64), from the data
 // sheet: q, k, v, dout read and dq, dk, dv written are 7 × 1.97 M elements
-// (55 MB fp32, 27.5 MB bf16); the five products are 3.15 GFLOP. fp32 on the
-// CUDA cores (67 TFLOP/s): ≈ 47 µs, bound by operations. bf16 (989 TFLOP/s,
-// 3.35 TB/s): ≈ 8.2 µs, bound by bytes.
+// (55 MB fp32, 27.5 MB bf16); the five products are 3.15 GFLOP. fp32 at fp32
+// accuracy is at best three TF32 products (495 / 3 TFLOP/s): ≈ 19 µs, bound
+// by operations. bf16 (989 TFLOP/s, 3.35 TB/s): ≈ 8.2 µs, bound by bytes.
 //
-// Two bodies, routed as the forward (ops/attention.py: attention_route):
-//   mma_bf16  (attn_bwd_mma_kernel): bfloat16 with S <= 160, D <= 128 and
-//             the block's shared memory (bwd_mma_smem_bytes) within 227 KB —
-//             at S 160 that is D <= 80.
-//   cuda_core (attn_bwd_dq_kernel + attn_bwd_dkv_kernel): float32 always,
-//             bfloat16 beyond that (e.g. S 256, or S 160 with D 128).
+// Three bodies, routed as the forward (ops/attention.py: attention_route):
+//   mma_bf16   (attn_bwd_mma_kernel): bfloat16 with S <= 160, D <= 128 and
+//              the block's shared memory (bwd_mma_smem_bytes) within 227 KB —
+//              at S 160 that is D <= 80.
+//   mma_tf32x3 (attn_bwd_tf32_kernel): float32 with S <= 160, D <= 64.
+//   cuda_core  (attn_bwd_dq_kernel + attn_bwd_dkv_kernel): either dtype
+//              beyond those (e.g. S 256, or S 160 with D 128).
 //
 // mma_bf16 body: one launch, one block per pair holding the whole pair in
 // shared memory, as the TPU kernel held a sample in VMEM; tensor cores by
@@ -61,6 +62,32 @@
 // one). 192 pairs at B 16 are 1.45 waves of one block per SM; 384 at B 32
 // are 2.9.
 //
+// mma_tf32x3 body: one launch, five products, no atomics, 3×TF32 products
+// on mma.sync m16n8k8 (mma_tf32.cuh). The bf16 layout does not carry over:
+// Q, K, V and dout whole in fp32 are 174 KB, and p and dp whole in registers
+// would leave no room for the split. Instead one block a pair, one warp per
+// 16 keys (10 at S 160), and the block walks the queries in chunks of 32:
+//   K and V of the pair stay in shared memory (rows of D_pad + 4 floats);
+//   the Q and dout chunks are double-buffered by cp.async (146 KB at S 160,
+//   D 64: one block an SM).
+//   Prologue: each query's max and sum of exp, saved by the forward, and
+//     Δ_i = Σ_d dout·out, which in exact arithmetic is Σⱼ dp·p, from the
+//     forward's output (its loads all issued before the first sum: done row
+//     by row it took a large share of the kernel's cycles).
+//   Each chunk, warp w (keys 16w .. 16w+15):
+//     Sᵀ = K·Qᵀ and dPᵀ = V·doutᵀ into accumulators with key rows;
+//     p = exp(s·scale + bias − max) / sum by the forward's div_rn quotient,
+//     the hash mask at (g, i, j), pd and ds = p·(dp − Δ);
+//     dV += Pdᵀ·dout and dK += dSᵀ·Q, the accumulator tiles as A operands;
+//     dS to shared memory [query][key].
+//   __syncthreads; the next chunk but one is issued; dQ = dS·K·scale of the
+//   chunk over all keys, a warp per (16 queries, 16 columns), written once.
+// The sums run in one fixed order, so two calls give the same bits. Two
+// blocks a pair (80 keys each, dQ from a fixed-order two-part sum) measured
+// slower at B 16 and B 32 on the H100, and splitting the Q and dout chunks
+// into TF32 planes once per block instead of in every warp measured no
+// faster. 192 pairs at B 16 are 1.45 waves of one block per SM.
+//
 // cuda_core body: fp32 math on the CUDA cores, as the forward (no TF32).
 // dk and dv sum over every query row of a pair, and Hopper blocks run in no
 // order, so instead of the TPU's whole-sample VMEM block this body is two
@@ -92,6 +119,7 @@
 
 #include "attention_common.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -663,6 +691,272 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------------------------- mma_tf32x3
+
+constexpr int kChunk = 32;     // query rows a block takes a step
+constexpr int kTf32MaxD = 64;  // dk and dv of 16 keys × D_pad in registers
+
+// K and V of the pair and two stages of the Q and dout chunks as fp32 rows
+// of D_pad + 4, the dS chunk [kChunk][S_pad + 8], and five fp32 rows [S_pad]:
+// the key bias, each query's max, sum of exp, its reciprocal and Δ
+size_t bwd_tf32_smem_bytes(int S, int D) {
+  const size_t S_pad = mma::pad16(S), ld = mma::pad16(D) + 4;
+  return ((2 * S_pad + 4 * kChunk) * ld + kChunk * (S_pad + 8) + 5 * S_pad) *
+         sizeof(float);
+}
+
+// kFull: S_pad = 160 and D_pad = 64 exactly (the main path): every count and
+// stride is a compile-time constant, and every chunk has 32 queries.
+template <bool kFull>
+__global__ void __launch_bounds__(mma::kKeyChunks * 32, 1)
+attn_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     const int32_t* __restrict__ seeds, const float* __restrict__ dout,
+                     const float* __restrict__ out, const float* __restrict__ stats,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     int G, int H, int S, int D, float scale, uint32_t threshold,
+                     float drop_scale, int use_dropout, int seed_group) {
+  using namespace mma;
+  constexpr int DC = kTf32MaxD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S_pad = kFull ? 16 * kKeyChunks : pad16(S);
+  const int D_pad = kFull ? kTf32MaxD : pad16(D), ld = D_pad + 4, lds = S_pad + 8;
+  const int n_kc = S_pad >> 4, n_dc = D_pad >> 4;
+  const int n_warps = n_kc;                 // one warp per 16 keys
+  const int n_chunks = (S_pad + kChunk - 1) / kChunk;
+  float* k_s = reinterpret_cast<float*>(smem_raw);
+  float* v_s = k_s + S_pad * ld;
+  float* qc_s = v_s + S_pad * ld;           // Q chunks [2][kChunk][ld]
+  float* oc_s = qc_s + 2 * kChunk * ld;     // dout chunks [2][kChunk][ld]
+  float* ds_s = oc_s + 2 * kChunk * ld;     // dS of the chunk [query][key]
+  float* bias_s = ds_s + kChunk * lds;
+  float* m_s = bias_s + S_pad;              // per query: max of s,
+  float* l_s = m_s + S_pad;                 //   sum of exp(s − max),
+  float* r_s = l_s + S_pad;                 //   its reciprocal,
+  float* d_s = r_s + S_pad;                 //   Δ = Σ_d dout·out
+
+  const int g = blockIdx.x;                 // (sample, head) pair
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w0 = warp * 16;                 // the warp's 16 keys
+  const size_t base = (size_t)g * S * D;
+  auto stage_chunk = [&](int c) {
+    const int i0 = c * kChunk, buf = (c & 1) * kChunk * ld;
+    stage_async_f32(qc_s + buf, ld, q + base + (size_t)i0 * D, S - i0, kChunk, D, D_pad);
+    stage_async_f32(oc_s + buf, ld, dout + base + (size_t)i0 * D, S - i0, kChunk, D,
+                    D_pad);
+  };
+  stage_async_f32(k_s, ld, k + base, S, S_pad, D, D_pad);
+  stage_async_f32(v_s, ld, v + base, S, S_pad, D, D_pad);
+  stage_chunk(0);
+  cp_async_commit();
+  if (n_chunks > 1) stage_chunk(1);
+  cp_async_commit();
+  stage_bias(bias_s, bias + (size_t)(g / H) * S, S, S_pad);
+  // the forward's row statistics; padded queries get p = 0 (max +∞)
+  for (int i = threadIdx.x; i < S_pad; i += blockDim.x) {
+    const float l = i < S ? stats[((size_t)G + g) * S + i] : 1.f;
+    m_s[i] = i < S ? stats[(size_t)g * S + i] : __int_as_float(0x7f800000);
+    l_s[i] = l;
+    r_s[i] = __frcp_rn(l);
+  }
+  // Δ_i = Σⱼ dp·p = Σ_d dout·out (exact arithmetic). A half-warp takes a
+  // row, a lane 4 columns (D <= 64); the block's 2·S_pad threads cover the
+  // rows in 8 steps whose loads are all issued before the first sum, so the
+  // device-memory latency is paid once, not once a row.
+  {
+    float4 a[8], b[8];
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int e = threadIdx.x + it * blockDim.x, i = e >> 4, c = (e & 15) << 2;
+      a[it] = b[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < S && c < D) {
+        a[it] = *reinterpret_cast<const float4*>(dout + base + (size_t)i * D + c);
+        b[it] = *reinterpret_cast<const float4*>(out + base + (size_t)i * D + c);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      float acc = a[it].x * b[it].x;
+      acc = fmaf(a[it].y, b[it].y, acc);
+      acc = fmaf(a[it].z, b[it].z, acc);
+      acc = fmaf(a[it].w, b[it].w, acc);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      const int e = threadIdx.x + it * blockDim.x;
+      if ((e & 15) == 0) d_s[e >> 4] = acc;
+    }
+  }
+  uint32_t seed = 0, idx_base = 0;
+  if (use_dropout) {
+    seed = (uint32_t)seeds[g / seed_group];
+    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+  }
+
+  float acc_v[2 * DC][4], acc_k[2 * DC][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * DC; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc_v[nt][r] = acc_k[nt][r] = 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<1>();
+    __syncthreads();  // chunk c is staged; the previous chunk's dQ has read ds_s
+    const float* q_c = qc_s + (c & 1) * kChunk * ld;
+    const float* o_c = oc_s + (c & 1) * kChunk * ld;
+    const int i0 = c * kChunk;
+    const int n_qt = kFull ? kChunk / 16 : min(kChunk / 16, n_kc - 2 * c);
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·doutᵀ: the warp's 16 keys × the chunk's queries
+    float st[kChunk / 8][4], dpt[kChunk / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kChunk / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) st[nt][r] = dpt[nt][r] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < 2 * DC; ++kd) {
+      if (kd < 2 * n_dc) {
+        FragA ak, av;
+        load_a_plain(ak, k_s, ld, w0, 8 * kd, lane);
+        load_a_plain(av, v_s, ld, w0, 8 * kd, lane);
+#pragma unroll
+        for (int nt = 0; nt < kChunk / 8; ++nt) {
+          if (nt < 2 * n_qt) {
+            FragB b;
+            load_b_nk_plain(b, q_c, ld, 8 * nt, 8 * kd, lane);
+            mma_3xtf32(st[nt], ak, b);
+            load_b_nk_plain(b, o_c, ld, 8 * nt, 8 * kd, lane);
+            mma_3xtf32(dpt[nt], av, b);
+          }
+        }
+      }
+    }
+    // p from the saved max and sum, with the forward's quotient
+    bool tiny = false;
+#pragma unroll
+    for (int nt = 0; nt < kChunk / 8; ++nt) {
+      if (nt < 2 * n_qt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = w0 + acc_row(lane, r), i = i0 + 8 * nt + acc_col(lane, r);
+          st[nt][r] = expf(st[nt][r] * scale + bias_s[j] - m_s[i]);
+          tiny |= is_tiny_numerator(st[nt][r]);
+        }
+      }
+    }
+    if (__any_sync(0xffffffffu, tiny)) {
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt)
+        if (nt < 2 * n_qt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            st[nt][r] = __fdiv_rn(st[nt][r], l_s[i0 + 8 * nt + acc_col(lane, r)]);
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt)
+        if (nt < 2 * n_qt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = i0 + 8 * nt + acc_col(lane, r);
+            st[nt][r] = div_rn(st[nt][r], l_s[i], r_s[i]);
+          }
+    }
+    // the mask at (g, i, j); pd into st, ds = p·(dp − Δ) into dpt and ds_s
+#pragma unroll
+    for (int nt = 0; nt < kChunk / 8; ++nt) {
+      if (nt < 2 * n_qt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = w0 + acc_row(lane, r), i = i0 + 8 * nt + acc_col(lane, r);
+          const float p = st[nt][r];
+          float dp = dpt[nt][r];
+          if (use_dropout) {
+            const bool keep = hash_bits(idx_base + (uint32_t)i * (uint32_t)S + (uint32_t)j,
+                                        seed) >= threshold;
+            st[nt][r] = keep ? p * drop_scale : 0.f;
+            dp = keep ? dp * drop_scale : 0.f;
+          }
+          dpt[nt][r] = p * (dp - d_s[i]);
+          ds_s[(i - i0) * lds + j] = dpt[nt][r];
+        }
+      }
+    }
+    // dV += Pdᵀ·dout and dK += dSᵀ·Q: the accumulator tiles are the A operands
+#pragma unroll
+    for (int nt = 0; nt < kChunk / 8; ++nt) {
+      if (nt < 2 * n_qt) {
+        FragA a;
+        a_from_acc(a, st[nt]);
+#pragma unroll
+        for (int dn = 0; dn < 2 * DC; ++dn) {
+          if (dn < 2 * n_dc) {
+            FragB b;
+            load_b_kn_pair(b, o_c, ld, 8 * nt, 8 * dn, lane);
+            mma_3xtf32(acc_v[dn], a, b);
+          }
+        }
+        a_from_acc(a, dpt[nt]);
+#pragma unroll
+        for (int dn = 0; dn < 2 * DC; ++dn) {
+          if (dn < 2 * n_dc) {
+            FragB b;
+            load_b_kn_pair(b, q_c, ld, 8 * nt, 8 * dn, lane);
+            mma_3xtf32(acc_k[dn], a, b);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the chunk's dS is whole; its Q and dout are read
+    if (c + 2 < n_chunks) stage_chunk(c + 2);
+    cp_async_commit();
+
+    // dQ = dS·K·scale of the chunk: a warp takes (16 queries, 16 columns)
+    for (int u = warp; u < n_qt * n_dc; u += n_warps) {
+      const int qt = u / n_dc, dc = u - qt * n_dc;
+      float acc[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[h][r] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < 2 * kKeyChunks; ++kt) {
+        if (kt < 2 * n_kc) {
+          FragA a;
+          load_a_pair(a, ds_s, lds, 16 * qt, 8 * kt, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            FragB b;
+            load_b_kn_pair(b, k_s, ld, 8 * kt, 16 * dc + 8 * h, lane);
+            mma_3xtf32(acc[h], a, b);
+          }
+        }
+      }
+      store_rows_f32(dq + base, acc, i0 + 16 * qt, 16 * dc, S, D, scale, lane);
+    }
+  }
+  store_rows_f32(dv + base, acc_v, w0, 0, S, D, 1.f, lane);
+  store_rows_f32(dk + base, acc_k, w0, 0, S, D, scale, lane);
+}
+
+template <bool kFull>
+int launch_tf32(const void* q, const void* k, const void* v, const void* bias,
+                const void* seeds, const void* dout, const void* out, const void* stats,
+                void* dq, void* dk, void* dv, int G, int H, int S, int D, float scale,
+                uint32_t threshold, float drop_scale, int use_dropout, int seed_group,
+                cudaStream_t stream) {
+  const size_t smem = bwd_tf32_smem_bytes(S, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_tf32_kernel<kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_tf32_kernel<kFull><<<G, 32 * (mma::pad16(S) >> 4), smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(seeds), static_cast<const float*>(dout),
+      static_cast<const float*>(out), static_cast<const float*>(stats),
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), G, H, S,
+      D, scale, threshold, drop_scale, use_dropout, seed_group);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -717,5 +1011,29 @@ int fused_attention_bwd_mma(const void* q, const void* k, const void* v,
 
 // dynamic shared memory of one mma_bf16 block (the route rule's formula)
 int fused_attention_bwd_mma_smem(int S, int D) { return (int)bwd_mma_smem_bytes(S, D); }
+
+// The mma_tf32x3 body: float32 only, the arguments of fused_attention_bwd_mma
+// plus the forward's output `out` and its row statistics `stats` ([2, G, S]:
+// each row's max and sum of exp, from fused_attention_fwd_tf32); S <= 160,
+// D <= 64 and a multiple of 4, else cudaErrorInvalidValue. One launch.
+int fused_attention_bwd_tf32(const void* q, const void* k, const void* v,
+                             const void* bias, const void* seeds, const void* dout,
+                             const void* out, const void* stats, void* dq, void* dk,
+                             void* dv, int G, int H, int S, int D, float scale,
+                             unsigned int threshold, float drop_scale, int use_dropout,
+                             int seed_group, void* stream) {
+  if (S < 1 || S > mma::kMaxS || D < 4 || D > kTf32MaxD || D % 4 != 0 ||
+      bwd_tf32_smem_bytes(S, D) > (size_t)mma::kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == kTf32MaxD)
+    return launch_tf32<true>(q, k, v, bias, seeds, dout, out, stats, dq, dk, dv, G, H, S,
+                             D, scale, threshold, drop_scale, use_dropout, seed_group, st);
+  return launch_tf32<false>(q, k, v, bias, seeds, dout, out, stats, dq, dk, dv, G, H, S,
+                            D, scale, threshold, drop_scale, use_dropout, seed_group, st);
+}
+
+// dynamic shared memory of one mma_tf32x3 block (the route rule's formula)
+int fused_attention_bwd_tf32_smem(int S, int D) { return (int)bwd_tf32_smem_bytes(S, D); }
 
 }  // extern "C"

@@ -231,19 +231,16 @@ __device__ __forceinline__ void rows_times_keys(float (&acc)[2 * kKeyChunks][4],
   }
 }
 
-// p = softmax(Q·Kᵀ·scale + bias) of the warp's 16 query rows m0 .. m0+15,
-// whole rows in registers: p[nt][r] is (row m0 + acc_row(lane, r), key
+// p = softmax(p·scale + bias) in place, for raw scores p = Q·Kᵀ of 16 query
+// rows held whole in registers: p[nt][r] is (row acc_row(lane, r), key
 // 8·nt + acc_col(lane, r)). The row max and sum are over the quad that holds
 // a row (lanes 4·(lane/4) .. +3); exp(s − m) / sum with the quotient of IEEE
 // division (div_rn), as attention.py:82-89. Keys j >= S (bias −∞) get 0.
-template <int DC>
-__device__ __forceinline__ void softmax_rows(float (&p)[2 * kKeyChunks][4],
-                                             const __nv_bfloat16* q_s,
-                                             const __nv_bfloat16* k_s, int ld,
-                                             const float* bias_s, int m0, int n_kc,
-                                             int n_dc, float scale, int lane) {
-  rows_times_keys<DC>(p, q_s, k_s, ld, m0, n_kc, n_dc, lane);
-  float mx[2] = {-__int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
+// mx[h], sum[h] return the max and the sum of rows acc_row(lane, 2h).
+__device__ __forceinline__ void softmax_scores(float (&p)[2 * kKeyChunks][4],
+                                               const float* bias_s, int n_kc, float scale,
+                                               int lane, float (&mx)[2], float (&sum)[2]) {
+  mx[0] = mx[1] = -__int_as_float(0x7f800000);
 #pragma unroll
   for (int nt = 0; nt < 2 * kKeyChunks; ++nt) {
     if (nt < 2 * n_kc) {
@@ -254,7 +251,7 @@ __device__ __forceinline__ void softmax_rows(float (&p)[2 * kKeyChunks][4],
       }
     }
   }
-  float sum[2] = {0.f, 0.f};
+  sum[0] = sum[1] = 0.f;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
@@ -296,6 +293,19 @@ __device__ __forceinline__ void softmax_rows(float (&p)[2 * kKeyChunks][4],
 #pragma unroll
         for (int r = 0; r < 4; ++r) p[nt][r] = div_rn(p[nt][r], sum[r >> 1], rcp[r >> 1]);
   }
+}
+
+// p = softmax(Q·Kᵀ·scale + bias) of the warp's 16 query rows m0 .. m0+15
+// (softmax_scores)
+template <int DC>
+__device__ __forceinline__ void softmax_rows(float (&p)[2 * kKeyChunks][4],
+                                             const __nv_bfloat16* q_s,
+                                             const __nv_bfloat16* k_s, int ld,
+                                             const float* bias_s, int m0, int n_kc,
+                                             int n_dc, float scale, int lane) {
+  rows_times_keys<DC>(p, q_s, k_s, ld, m0, n_kc, n_dc, lane);
+  float mx[2], sum[2];
+  softmax_scores(p, bias_s, n_kc, scale, lane, mx, sum);
 }
 
 // Store an A-shaped bf16 tile (a_from_acc's output: rows m0 + acc_row,

@@ -32,8 +32,12 @@ LIBRARIES: Dict[str, tuple] = {
     "fused_attention_bwd": ("fused_attention_bwd.cu",),
 }
 
+# -split-compile 0: optimise a source's kernels in parallel on every core (a
+# library holds several template instantiations; chip_smoke.py prints the
+# build's seconds)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile", "0")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -4,8 +4,9 @@ kernels and ``jax.grad`` through their custom VJPs (interpret mode on the
 CPU), with and without dropout; the autograd functions against the plain
 backward; the counter hash bit for bit against the numpy replica; the
 block-size policy; the rule that routes a launch to the tensor-core or the
-CUDA-core body; and the wrapper's guards. The CUDA kernels themselves run
-only on the card (chip_smoke.py)."""
+CUDA-core body; the float32 tensor-core body's 3×TF32 products, emulated;
+and the wrapper's guards. The CUDA kernels themselves run only on the card
+(chip_smoke.py)."""
 import json
 import os
 
@@ -246,12 +247,12 @@ def _main_path_shape(config):
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("config", ["uniter-base.json", "uniter-large.json"])
 def test_route_main_path_shapes(config, backward):
-    """bf16 at the shipped configurations' shapes (S 160, D 64) takes the
-    tensor-core body in both directions; fp32 the CUDA-core body."""
+    """At the shipped configurations' shapes (S 160, D 64) both dtypes take
+    their tensor-core body in both directions."""
     S, D = _main_path_shape(config)
     assert (S, D) == (160, 64)
     assert T.attention_route(torch.bfloat16, S, D, backward) == "mma_bf16"
-    assert T.attention_route(torch.float32, S, D, backward) == "cuda_core"
+    assert T.attention_route(torch.float32, S, D, backward) == "mma_tf32x3"
 
 
 # (S, D, backward, route of bf16) on each side of each limit: S <= 160 (the
@@ -268,13 +269,26 @@ ROUTE_LIMITS = [
 ]
 
 
+# the float32 route at the same cases: mma_tf32x3 with S <= 160 and D <= 128,
+# the backward only up to D 64 (its dk and dv registers)
+FP32_ROUTE_CUDA_CORE = {(161, 64, False), (161, 64, True), (256, 128, False),
+                        (256, 128, True), (160, 80, True), (160, 84, True),
+                        (160, 128, True), (128, 128, True), (144, 128, True)}
+
+
 @pytest.mark.parametrize("S,D,backward,route", ROUTE_LIMITS,
                          ids=lambda x: str(x))
 def test_route_limits(S, D, backward, route):
     assert T.attention_route(torch.bfloat16, S, D, backward) == route
-    assert T.attention_route(torch.float32, S, D, backward) == "cuda_core"
     fits = T.mma_smem_bytes(S, D, backward) <= T.MAX_SMEM
     assert (route == "mma_bf16") == (S <= T.MMA_MAX_S and fits)
+    fp32 = T.attention_route(torch.float32, S, D, backward)
+    assert fp32 == ("cuda_core" if (S, D, backward) in FP32_ROUTE_CUDA_CORE
+                    else "mma_tf32x3")
+    fits = T.tf32_smem_bytes(S, D, backward) <= T.MAX_SMEM
+    assert (fp32 == "mma_tf32x3") == (
+        S <= T.MMA_MAX_S and D <= (T.TF32_BWD_MAX_D if backward else
+                                   T.MMA_MAX_D) and fits)
 
 
 @pytest.mark.parametrize("S,D,backward,nbytes", [
@@ -287,6 +301,30 @@ def test_route_limits(S, D, backward, route):
 ])
 def test_mma_smem_bytes_layout(S, D, backward, nbytes):
     assert T.mma_smem_bytes(S, D, backward) == nbytes
+
+
+@pytest.mark.parametrize("S,D,backward,nbytes", [
+    # forward: K and 5 tiles of Q rows [.][72], V [160][68] fp32 + bias
+    (160, 64, False, ((160 + 80) * 72 + 160 * 68 + 160) * 4),
+    # backward: K, V and 2 stages of 32-row Q, dout chunks [.][68], the dS
+    # chunk [32][168], bias, max, sum, 1/sum and delta rows
+    (160, 64, True, ((2 * 160 + 4 * 32) * 68 + 32 * 168 + 5 * 160) * 4),
+    # S 17 pads to two 16-row tiles, D 16 to 16 + 8 and 16 + 4
+    (17, 16, False, ((32 + 32) * 24 + 32 * 20 + 32) * 4),
+    (17, 16, True, ((2 * 32 + 4 * 32) * 20 + 32 * 40 + 5 * 32) * 4),
+])
+def test_tf32_smem_bytes_layout(S, D, backward, nbytes):
+    assert T.tf32_smem_bytes(S, D, backward) == nbytes
+
+
+def test_tf32_backward_route_implies_forward_route():
+    """The mma_tf32x3 backward rebuilds p from the row statistics that only
+    the mma_tf32x3 forward writes, so wherever the backward takes the route
+    the forward does too."""
+    for S in range(1, 260, 7):
+        for D in range(4, 132, 4):
+            if T.attention_route(torch.float32, S, D, True) == "mma_tf32x3":
+                assert T.attention_route(torch.float32, S, D) == "mma_tf32x3"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -311,7 +349,7 @@ def test_cpu_tensors_never_consult_the_route(kernel, dtype, monkeypatch):
 
 
 def test_route_launch_counts_name_every_kernel_and_route():
-    assert set(T.ROUTES) == {"mma_bf16", "cuda_core"}
+    assert set(T.ROUTES) == {"mma_bf16", "mma_tf32x3", "cuda_core"}
     assert set(T.ROUTE_LAUNCHES) == {(name, route) for name in T.LAUNCHES
                                      for route in T.ROUTES}
 
@@ -371,3 +409,99 @@ def test_plain_bf16_backward_matches_jax_grad_at_main_path_shape(kernel):
         assert g.dtype == torch.bfloat16
         err = np.abs(g.float().numpy() - r).max() / np.abs(r).max()
         assert err <= BWD_TOL["bfloat16"], err
+
+
+# ---------------------------------------- 3×TF32 products, emulated on the CPU
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does (and mma_tf32.cuh's
+    ``to_tf32``): the low 13 mantissa bits dropped, the magnitude rounded
+    half away from zero."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x as the tensor core reads an fp32 register as TF32: the low 13
+    mantissa bits ignored."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a·b as the mma_tf32x3 bodies take it: each operand split into
+    hi = tf32(x) and lo = x − hi (read truncated), the small products summed
+    before the large one, in fp32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated_attention(mm, q, k, v, bias, do, scale, keep, c):
+    """The mma_tf32x3 forward and one-launch backward, step for step in
+    torch with the products of ``mm``: the forward keeps each row's max and
+    sum of exp; the backward rebuilds pᵀ from them over keys × queries, takes
+    Δ = rowsum(dout ∘ out) and does five products."""
+    B, S = q.shape[0], q.shape[2]
+    s = mm(q, k.transpose(-1, -2)) * scale + bias.reshape(B, 1, 1, S)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    p = e / l
+    zero = torch.zeros(())
+    out = mm(p if keep is None else torch.where(keep, p * c, zero), v)
+    st = (mm(k, q.transpose(-1, -2)) * scale + bias.reshape(B, 1, S, 1))
+    pt = torch.exp(st - m.transpose(-1, -2)) / l.transpose(-1, -2)
+    dpt = mm(v, do.transpose(-1, -2))
+    pdt = pt
+    if keep is not None:
+        kt = keep.transpose(-1, -2)
+        pdt = torch.where(kt, pt * c, zero)
+        dpt = torch.where(kt, dpt * c, zero)
+    dst = pt * (dpt - (do * out).sum(-1)[:, :, None, :])
+    dq = mm(dst.transpose(-1, -2), k) * scale
+    dk = mm(dst, q) * scale
+    dv = mm(pdt, do)
+    return out, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_3xtf32_products_hold_fp32_tolerance(rate):
+    """At the main path's S 160, D 64 with chip_smoke.py's inputs (normal
+    q, k, v and dout; keys past a length in [20, 160] biased −10000), the
+    mma_tf32x3 math with emulated 3×TF32 products is within 1e-5 of the
+    plain forward (absolute) and of each plain gradient's largest
+    magnitude, as chip_smoke.py holds the kernels on the card. One TF32
+    product a product is not."""
+    B, H, S, D = 2, 12, 160, 64
+    rng = np.random.RandomState(7)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, H, S, D).astype(np.float32))
+                   for _ in range(4))
+    lens = rng.randint(20, S + 1, size=B)
+    bias = torch.from_numpy(((np.arange(S)[None] >= lens[:, None])
+                             * -10000.0)[:, None, None, :].astype(np.float32))
+    seeds = torch.from_numpy(rng.randint(0, 2 ** 31 - 1, B).astype(np.int32))
+    scale = D ** -0.5
+    keep, c = None, 1.0
+    if rate > 0:
+        keep = T._keep_mask((H, S, S), rate,
+                            seeds.to(torch.int64)).reshape(B, H, S, S)
+        c = T._dropout_scale(rate)
+    ref_out = T.fused_attention_plain(q, k, v, bias, scale, rate, seeds)
+    ref_grads = T.fused_attention_bwd_plain(q, k, v, bias, do, scale, rate,
+                                            seeds, H)
+
+    def errors(mm):
+        out, grads = _emulated_attention(mm, q, k, v, bias, do, scale, keep,
+                                         c)
+        rel = max(float((g - r).abs().max() / r.abs().max())
+                  for g, r in zip(grads, ref_grads))
+        return float((out - ref_out).abs().max()), rel
+
+    fwd, bwd = errors(_mm_3xtf32)
+    assert fwd <= 1e-5 and bwd <= 1e-5, (fwd, bwd)
+    fwd, bwd = errors(_mm_1xtf32)
+    assert fwd > 1e-5 and bwd > 1e-5, (fwd, bwd)
