@@ -43,6 +43,26 @@ Phases, each of which makes the script exit non-zero if it fails:
    prints train memes/s per epoch. Then one fp32 micro-batch's loss and
    gradients, card against CPU, within 1e-4; and where one train step's
    time goes (wall against host issue, kernels by torch.profiler).
+6. Crossval phase: the README recipe through the same CLI at full width
+   (``--num_folds -1 --crossval_use_dev``, dev size 16 on the synthetic
+   dataset: one fold per 16 memes of the rarer label, 1 epoch a fold, the
+   per-sample kernel in float32): the fold splits, every fold's best
+   checkpoint, CSVs and metrics JSON, forward and backward launch counts
+   over all folds (every launch on ``mma_tf32x3``), then the ensemble
+   search on the card (the brute force and the device EA, which must have
+   run) and its dev and test ``*_ensemble.csv`` files. Prints train
+   memes/s and wall time per fold, and the ensemble's wall time.
+7. Remat check: one float32 micro-batch at full width, dropout 0.1,
+   ``remat`` with policy "full" and "dots" against no remat from the same
+   generator seed: loss and every gradient within 1e-6 of the gradient's
+   largest magnitude; the recompute launches the forward kernel again.
+8. Ensemble at the recipe's size: random fold predictions from a seed,
+   F 15 folds, N 500 memes (each fold predicts its half, 250; the rest
+   −1). Times ``brute_force_finder`` (10 000 candidates) and the device EA
+   (512 × 100) on the card, and the host EA beside them; checks 64
+   candidates' ``ensemble_scores`` on the card against the host AUROC of
+   the card's own mixes (1e-6), and the card's brute-force best score
+   against the same search on the CPU (within 2 / (n_pos · n_neg)).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -535,12 +555,13 @@ def kernel_phase(torch) -> dict:
 
 class PassLog:
     """Collects the trainer's per-pass inference records (memes, seconds)
-    and per-epoch training records (memes, seconds)."""
+    and per-epoch training records (memes, seconds), and the crossval
+    driver's fold starts and end (host clock)."""
 
     def __init__(self):
         import logging
 
-        self.passes, self.epochs = [], []
+        self.passes, self.epochs, self.folds = [], [], []
         parent = self
 
         class Handler(logging.Handler):
@@ -552,15 +573,21 @@ class PassLog:
                 elif msg.startswith("train epoch"):
                     _, n, secs = record.args[:3]
                     parent.epochs.append((int(n), float(secs)))
+                elif msg.startswith(("Starting fold",
+                                     "Cross validation finished")):
+                    parent.folds.append(record.created)
 
         self.handler = Handler(level=logging.INFO)
-        logger = logging.getLogger("meme_challenge_tpu_torch.train")
-        logger.setLevel(logging.INFO)
-        logger.addHandler(self.handler)
+        for name in ("meme_challenge_tpu_torch.train",
+                     "meme_challenge_tpu_torch.crossval"):
+            logger = logging.getLogger(name)
+            logger.setLevel(logging.INFO)
+            logger.addHandler(self.handler)
 
     def clear(self):
         self.passes.clear()
         self.epochs.clear()
+        self.folds.clear()
 
 
 def forward_breakdown(torch, model, batch, dtype: str) -> None:
@@ -1046,6 +1073,292 @@ def train_breakdown(torch, synth: dict, dtype: str) -> None:
         log("breakdown train %s: profiler unavailable (%s)" % (dtype, e))
 
 
+def _read_csv(path: str) -> list:
+    with open(path) as f:
+        return [r.split(",") for r in f.read().split("\n")[1:] if r]
+
+
+def crossval_phase(torch, work: str, synth: dict, passlog) -> dict:
+    """The README recipe through the port's CLI at full UNITER-base width:
+    --num_folds -1 --crossval_use_dev with dev size 16, 1 epoch a fold, the
+    per-sample kernel in float32, dropout 0.1, then the ensemble search on
+    the card. Checks the splits, every fold's artifacts, the launch counts
+    over all folds and their route, that the device EA ran, and the
+    ensemble CSVs; returns the launches of each (kernel, dtype)."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.data.crossval_splits import crossval_dir
+    from meme_challenge_tpu_torch.ensemble import ensemble as E
+    from meme_challenge_tpu_torch.ops import attention as A
+    from meme_challenge_tpu_torch.train import train_uniter
+
+    name, dtype, dev_size = "fused_attention", "float32", 16
+    batch_size, layers = 16, UniterConfig().num_hidden_layers
+    bwd = name + "_bwd"
+    run_dir = os.path.join(work, "crossval")
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(run_dir, "uniter.json")
+    with open(cfg_path, "w") as f:
+        json.dump(UniterConfig(use_pallas_attention=True).to_dict(), f)
+    argv = ["--data_path", synth["root"],
+            "--feature_path", synth["feature_dir"],
+            "--vocab_file", synth["vocab"], "--model_path", run_dir,
+            "--model_save_name", "cv.ckpt", "--uniter_config", cfg_path,
+            "--max_epoch", "1", "--num_folds", "-1", "--crossval_use_dev",
+            "--crossval_dev_size", str(dev_size),
+            "--batch_size", str(batch_size),
+            "--gradient_accumulation", str(TRAIN_ACCUM),
+            "--confounder_repeat", "3", "--pos_wt", "1.8",
+            "--scheduler", "warmup_cosine", "--warmup_steps", "2",
+            "--lr", "3e-5", "--seed", "43"]
+    passlog.clear()
+    reset_launches(A)
+    ea_runs = E.DEVICE_EA_RUNS["count"]
+    t0 = time.time()
+    results = train_uniter.main(argv)
+    torch.cuda.synchronize()
+    t_end = time.time()
+    counts = dict(A.LAUNCHES)
+    by_route = check_route_counts(A, "crossval", dtype, (name, bwd))
+
+    cv_dir = crossval_dir(synth["root"], dev_size, True)
+    n_splits = len([f for f in os.listdir(cv_dir) if f.startswith("train_")])
+    n_folds = len(results["val_metrics"])
+    if not (n_folds == n_splits >= 2 and len(passlog.epochs) == n_folds
+            and len(passlog.folds) == n_folds + 1):
+        fail("crossval: %d folds ran of %d splits, %d epochs, fold records "
+             "%s" % (n_folds, n_splits, len(passlog.epochs), passlog.folds))
+    groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
+                 for n, _ in passlog.epochs)
+    train_fwd = groups * TRAIN_ACCUM
+    eval_batches = sum(_ceil(n, batch_size) for n, _ in passlog.passes)
+    want = {name: layers * (train_fwd + eval_batches),
+            bwd: layers * train_fwd}
+    log("crossval: %d folds (dev size %d, use_dev_set) in %.1f s; launches "
+        "forward %d (expected %d = %d layers x (%d train + %d eval "
+        "forwards)), backward %d (expected %d); by route %s"
+        % (n_folds, dev_size, t_end - t0, counts[name], want[name], layers,
+           train_fwd, eval_batches, counts[bwd], want[bwd], by_route))
+    if any(counts[k] != want.get(k, 0) for k in counts):
+        fail("crossval: launch counts %s, expected %s" % (counts, want))
+
+    fold_walls = [b - a for a, b in zip(passlog.folds, passlog.folds[1:])]
+    ens_wall = t_end - passlog.folds[-1]
+    for i, ((n, secs), wall, m) in enumerate(zip(
+            passlog.epochs, fold_walls, results["val_metrics"])):
+        base = "cv_fold_%d" % i
+        want_files = ["%s.ckpt" % base, "%s_metrics.json" % base] + [
+            "%s_%s_preds.csv" % (base, ds) for ds in (
+                "dev_%02d" % i, "dev_seen_%02d" % i, "test_seen",
+                "test_unseen", "dev_unseen")]
+        missing = [f for f in want_files
+                   if not os.path.isfile(os.path.join(run_dir, f))]
+        if missing or not math.isfinite(m["aucroc"]):
+            fail("crossval fold %d: missing %s, metrics %s" % (i, missing, m))
+        for f in want_files[2:]:
+            probs = [float(r[1]) for r in _read_csv(os.path.join(run_dir, f))]
+            if not probs or not all(0.0 <= p <= 1.0 for p in probs):
+                fail("crossval: bad predictions in " + f)
+        log("crossval fold %d: train %d memes in %.4f s = %.1f memes/s; "
+            "fold wall %.2f s (init, epoch, validation, checkpoint, reload, "
+            "5 CSVs); dev AUROC %.4f"
+            % (i, n, secs, n / secs, wall, m["aucroc"]))
+
+    ens = results.get("ensemble")
+    ran = E.DEVICE_EA_RUNS["count"] - ea_runs
+    if ens is None or ran != 1:
+        fail("crossval: ensemble %s, device EA runs %d" % (ens, ran))
+    dev_ids = set()
+    for i in range(n_folds):
+        with open(os.path.join(cv_dir, "dev_seen_%02d.jsonl" % i)) as f:
+            dev_ids |= {json.loads(line)["id"] for line in f if line.strip()}
+    rows = {}
+    for ds, n_ids in (("dev_seen_00", len(dev_ids)),
+                      ("test_seen", _n_lines(synth["test_seen"])),
+                      ("test_unseen", _n_lines(synth["test_unseen"])),
+                      ("dev_unseen", _n_lines(synth["dev_unseen"]))):
+        path = os.path.join(run_dir, "cv_%s_ensemble.csv" % ds)
+        if not os.path.isfile(path):
+            fail("crossval: missing " + path)
+        table = _read_csv(path)
+        rows[ds] = len(table)
+        if len(table) != n_ids or not all(
+                0.0 <= float(r[1]) <= 1.0 for r in table):
+            fail("crossval: %s has %d rows, expected %d"
+                 % (path, len(table), n_ids))
+    log("crossval ensemble on the card: %.2f s (brute force %d candidates, "
+        "device EA 512 x 100; device EA runs %d); score %.4f, weights %s "
+        "(on_logits %s), threshold %.4f; ensemble CSV rows %s"
+        % (ens_wall, min(4 ** n_folds, 10000), ran,
+           ens["score"], ["%.3f" % w for w in ens["config"]["weights"]],
+           ens["config"]["on_logits"], ens["threshold"], rows))
+    return {(name, dtype): counts[name], (bwd, dtype): counts[bwd]}
+
+
+REMAT_TOL = 1e-6
+
+
+def remat_check(torch, synth: dict) -> None:
+    """One fp32 micro-batch of 16 at full width, dropout 0.1 / 0.1, the
+    per-sample kernel: the loss and every gradient with remat (policy
+    "full" and "dots") against no remat, each run from a fresh generator
+    of one seed, within REMAT_TOL of each gradient's largest magnitude (a
+    gradient zero up to rounding, the key bias's, against a thousandth of
+    the model's largest). The recompute launches the forward kernel once
+    more a layer."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.ops import attention as A
+    from meme_challenge_tpu_torch.train.losses import bce_logits_loss
+    from meme_challenge_tpu_torch.train.steps import (
+        MODEL_INPUT_KEYS,
+        TRAIN_KEYS,
+        to_device,
+    )
+
+    ds = MemeDataset(synth["train"], feature_dir=synth["feature_dir"],
+                     tokenizer=BertTokenizer(synth["vocab"]), max_txt_len=60,
+                     max_bb=100, img_dim=2048)
+    batch = ds.batch(list(range(16, 32)))
+    batch["sample_mask"] = (torch.arange(16) < 15).int().numpy()
+    b = to_device(batch, "cuda", keys=MODEL_INPUT_KEYS + TRAIN_KEYS)
+    layers = UniterConfig().num_hidden_layers
+    out = {}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        cfg = UniterConfig(use_pallas_attention=True, remat=remat,
+                           remat_policy=policy)
+        model = init_meme_uniter(cfg, 1, "cuda", torch_generator(4, "cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        fwd = A.LAUNCHES["fused_attention"]
+        t0 = time.perf_counter()
+        logits = model(b, deterministic=False,
+                       generator=torch_generator(5, "cuda"))
+        loss, _ = bce_logits_loss(logits, b["labels"], b["sample_mask"], 1.8)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
+        fwd = A.LAUNCHES["fused_attention"] - fwd
+        tag = "remat %s" % policy if remat else "no remat"
+        out[tag] = (loss.item(), {n: p.grad.float().cpu() for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None})
+        log("remat: %s: forward kernel launches %d, forward+backward %.1f ms "
+            "(first call), activation peak %.0f MiB"
+            % (tag, fwd, ms, peak))
+        if fwd != layers * (2 if remat else 1):
+            fail("remat %s: %d forward launches" % (tag, fwd))
+        del model, logits, loss
+    l_ref, g_ref = out.pop("no remat")
+    top = max(float(g.abs().max()) for g in g_ref.values())
+    for tag, (loss, grads) in out.items():
+        worst, worst_name = 0.0, ""
+        for n, g in g_ref.items():
+            scale = max(float(g.abs().max()), 1e-3 * top)
+            rel = float((grads[n] - g).abs().max()) / scale
+            if rel > worst:
+                worst, worst_name = rel, n
+        log("remat: %s vs no remat, dropout 0.1, same generator seed: loss "
+            "%.7f vs %.7f; %d gradients, worst %.3g of the largest magnitude "
+            "(%s; tol %g)" % (tag, loss, l_ref, len(grads), worst,
+                              worst_name, REMAT_TOL))
+        if not (set(grads) == set(g_ref) and worst <= REMAT_TOL
+                and abs(loss - l_ref) <= REMAT_TOL * abs(l_ref)):
+            fail("remat %s gradients disagree with no remat" % tag)
+
+
+def ensemble_scale_phase(torch) -> None:
+    """The ensemble search at the recipe's size on the card: F 15 folds,
+    N 500 memes (dev_seen), each fold predicting its half (250, the rest
+    −1), probabilities to 6 decimals from a seed. Wall times of the brute
+    force (10 000 candidates, both mixing spaces) and the device EA
+    (512 × 100), first and second call, and of the host EA; the scoring
+    call alone by CUDA events. Checks as in the module docstring."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.metrics import aucroc
+    from meme_challenge_tpu_torch.ensemble import ensemble as E
+    from meme_challenge_tpu_torch.ops.device_metrics import (
+        ensemble_prediction,
+        ensemble_scores,
+        ensemble_scores_logit,
+    )
+
+    F, N = 15, 500
+    rng = np.random.RandomState(0)
+    labels = rng.randint(0, 2, N)
+    signal = (2.0 * labels - 1.0) * 0.8
+    preds = np.stack([np.round(1.0 / (1.0 + np.exp(
+        -(signal + rng.randn(N) * (0.8 + 0.1 * f)))), 6) for f in range(F)])
+    for f in range(F):
+        preds[f, rng.permutation(N)[:N // 2]] = -1.0
+    indiv = [aucroc(p[p >= 0], labels[p >= 0]) for p in preds]
+    n_pos = int(labels.sum())
+    n_neg = N - n_pos
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    kw = dict(num_weights=F, individual_scores=indiv, device="cuda")
+    times = {}
+    for call in ("first", "second"):
+        (bf, times["bf_" + call]) = timed(lambda: E.brute_force_finder(
+            preds, labels, F, device="cuda"))
+        (ea, times["ea_" + call]) = timed(
+            lambda: E.ea_ensemble_finder_device(preds, labels, **kw))
+    host_ea, times["host_ea"] = timed(
+        lambda: E.ea_ensemble_finder(preds, labels, **kw))
+    bf_cpu, times["bf_cpu"] = timed(lambda: E.brute_force_finder(
+        preds, labels, F, device="cpu"))
+    p_dev = torch.as_tensor(preds, dtype=torch.float32, device="cuda")
+    l_dev = torch.as_tensor(labels, device="cuda")
+    grid = torch.as_tensor(rng.choice([0.0, 0.5, 1.0, 2.0], (10000, F)),
+                           dtype=torch.float32, device="cuda")
+    pop = torch.as_tensor(rng.uniform(0, 4, (512, F)), dtype=torch.float32,
+                          device="cuda")
+    score_ms, score_host = device_ms(
+        lambda: ensemble_scores(p_dev, grid, l_dev), iters=3, reps=3)
+    fit_ms, fit_host = device_ms(
+        lambda: ensemble_scores_logit(p_dev, pop, l_dev), iters=5, reps=3)
+    log("ensemble F %d, N %d (%d present a fold): brute force 10000 "
+        "candidates %.3f s (first call %.3f s; the CPU: %.3f s), device EA "
+        "512 x 100 %.3f s (first call %.3f s), host EA 512 x 100 (fitness "
+        "on the card) %.3f s | one ensemble_scores call at K 10000: device "
+        "%.3f ms, host issue %.3f ms; one EA fitness call at K 512: device "
+        "%.3f ms, host issue %.3f ms"
+        % (F, N, N // 2, times["bf_second"], times["bf_first"],
+           times["bf_cpu"], times["ea_second"], times["ea_first"],
+           times["host_ea"], score_ms, score_host, fit_ms, fit_host))
+    log("ensemble scores: brute force %.6f (card) vs %.6f (CPU), weights "
+        "equal %s; device EA %.6f, host EA %.6f; best single fold %.6f"
+        % (bf[0], bf_cpu[0], bf[1] == bf_cpu[1], ea[0], host_ea[0],
+           max(indiv)))
+    # 64 candidates: the card's scores against the host AUROC of its mixes
+    worst = 0.0
+    for on_logits, row in ((True, 0), (False, 1)):
+        mixes = ensemble_prediction(p_dev, grid[:64], on_logits).cpu()
+        got = ensemble_scores(p_dev, grid[:64], l_dev)[row].cpu()
+        for k in range(64):
+            ref = aucroc(mixes[k].double().numpy(), labels)
+            worst = max(worst, abs(float(got[k]) - ref))
+    gap = abs(bf[0] - bf_cpu[0])
+    log("ensemble checks: 64 candidates x 2 spaces, card scores vs host "
+        "AUROC of the card's mixes: max_abs_err %.3g (tol 1e-6); brute-force "
+        "best, card vs CPU: %.3g (tol 2/(n_pos n_neg) = %.3g)"
+        % (worst, gap, 2.0 / (n_pos * n_neg)))
+    if not (worst <= 1e-6 and gap <= 2.0 / (n_pos * n_neg)
+            and ea[0] >= max(indiv) - 1e-6
+            and all(0.0 <= w <= 4.0 for w in ea[1]["weights"])):
+        fail("ensemble at the recipe's size: scores disagree")
+
+
 def main(argv) -> None:
     if not os.path.isdir(PACKAGE):
         fail("meme_challenge_tpu_torch/ not found beside chip_smoke.py: run "
@@ -1084,7 +1397,16 @@ def main(argv) -> None:
             elif any(w in line for w in ("registers", "spill", "error")):
                 log("ptxas %s:   %s" % (name, line.strip()))
 
-    kernels = kernel_phase(torch)
+    t_start = time.time()
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        log("phase %s: %.1f s (%.1f s since the build ended)"
+            % (name, time.time() - t0, time.time() - t_start))
+        return out
+
+    kernels = timed("kernels", kernel_phase, torch)
     if "--kernels-only" in argv:
         return
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1092,11 +1414,21 @@ def main(argv) -> None:
     with tempfile.TemporaryDirectory(
             dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
         synth = make_dataset(work)
-        inference_phase(torch, work, synth, passlog)
-        launches = train_phase(torch, work, synth, passlog)
-        grad_check(torch, synth)
+        timed("inference", inference_phase, torch, work, synth, passlog)
+        launches = timed("train", train_phase, torch, work, synth, passlog)
+        cv_launches = timed("crossval", crossval_phase, torch, work, synth,
+                            passlog)
+        timed("grad", grad_check, torch, synth)
+        timed("remat", remat_check, torch, synth)
         for dtype in ("float32", "bfloat16"):
-            train_breakdown(torch, synth, dtype)
+            timed("breakdown " + dtype, train_breakdown, torch, synth, dtype)
+    timed("ensemble", ensemble_scale_phase, torch)
+    # the recipe's kernel and dtype also ran the crossval phase: its
+    # launches count with the train phase's
+    for key, n in cv_launches.items():
+        log("launches %s[%s]: train phase %d + crossval phase %d = %d"
+            % (key[0], key[1], launches[key], n, launches[key] + n))
+        launches[key] += n
 
     # "route" is the kind of kernel (hand-written CUDA C++); "body" is the
     # CUDA body the route rule picked at the main path's shape, the one the

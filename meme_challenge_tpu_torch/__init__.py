@@ -5,20 +5,23 @@ The JAX package stays beside it as the reference; this package imports
 nothing of it, nor JAX. Subpackages mirror the JAX package's names:
 
 - ``core``    config dataclasses, metrics, seeding, artifact IO, device choice.
-- ``data``    WordPiece tokenizer, static-shape MemeDataset + BatchLoader.
+- ``data``    WordPiece tokenizer, static-shape MemeDataset + BatchLoader,
+              the crossval fold splits.
 - ``ops``     hand-written CUDA kernels for Hopper (fused attention forward
               and backward), each with its plain PyTorch version, and their
-              build.
+              build; the batched AUROC and fold mixing of the ensemble
+              search (plain torch).
 - ``models``  UNITER (``nn.Module``s in the reference's torch key layout) and
               the checkpoint converters.
 - ``train``   losses, schedules, the optimizer, train and eval steps,
               checkpoints, scalar logs, the trainer, the crossval driver and
               the ``train_uniter`` CLI.
+- ``ensemble``  the ensemble weight search over per-fold CSVs.
 - ``utils``   synthetic dataset fixtures.
 
-It fine-tunes and serves UNITER-base on the default split
-(``--num_folds 0``); the fold loop, the ensemble and the other models follow
-the queue in ROADMAP.md.
+It runs the reference's README recipe for UNITER-base (fold splits, a
+fine-tune per fold, the ensemble search) and serves a checkpoint; the other
+models follow the queue in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

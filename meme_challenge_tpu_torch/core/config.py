@@ -4,8 +4,9 @@ A copy of ``meme_challenge_tpu/core/config.py``: every field keeps its name
 and default, so ``configs/*.json`` and the CLI flags read unchanged. Fields
 that only steer the JAX compiler (``scan_unroll``, ``mesh_*``,
 ``dispatch_unroll``, ...) are accepted and have no effect in the port;
-``steps_per_dispatch`` groups steps into a plain loop, and ``remat`` is
-ignored in inference and raises in training (not ported yet, ROADMAP.md).
+``steps_per_dispatch`` groups steps into a plain loop, and ``remat`` /
+``remat_policy`` checkpoint each encoder layer where autograd records it
+(``torch.utils.checkpoint``; no effect in inference).
 
 TPU-first redesign of the reference's three-tier config system
 (argparse in train_template.py:424-506, JSON model configs via

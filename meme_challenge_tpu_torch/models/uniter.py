@@ -25,16 +25,24 @@ what ``meme_uniter_params_to_torch`` writes (the ``uniter_model.`` trunk, the
   kernel the attention dropout runs inside it, from int32 seeds drawn per
   layer. Every random draw comes from the ``torch.Generator`` the caller
   passes; the JAX PRNG streams are not reproduced, only their
-  distributions. ``remat`` in training is not ported yet (ROADMAP.md).
+  distributions.
+- ``remat`` checkpoints each encoder layer in training (``_remat_layer``),
+  replaying its dropout draws in the recompute.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from meme_challenge_tpu_torch.core.config import UniterConfig
 from meme_challenge_tpu_torch.ops.attention import (
@@ -46,6 +54,19 @@ from meme_challenge_tpu_torch.ops.attention import (
 NEG_INF = -10000.0  # additive mask value, reference model/model.py:345
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the matrix products whose outputs remat_policy "dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.matmul.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy of remat_policy "dots" (JAX
+    ``checkpoint_policies.checkpoint_dots``): keep the products, recompute
+    the rest. The fused attention kernel is no aten operation and is
+    recomputed, as the Pallas call is under ``checkpoint_dots``."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def erf_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -314,15 +335,68 @@ class StackedEncoder(nn.Module):
         probs = threshold_dropout(probs.to(dtype), attn_rate, generator, bits8)
         return torch.matmul(probs.float(), v.float()).to(dtype)
 
+    def _layer(self, lp: BertLayer, x: torch.Tensor, bias32: torch.Tensor,
+               attn_rate: float, gen: Optional[torch.Generator]
+               ) -> torch.Tensor:
+        cfg = self.config
+        p_hid = cfg.hidden_dropout_prob
+        bits8 = cfg.dropout_bits_dtype == "uint8"
+        dtype = compute_dtype(cfg)
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        act = ACT2FN[cfg.hidden_act]
+        sa = lp.attention.self
+        q, k, v = (_split_heads(_linear(x, lin, dtype),
+                                cfg.num_attention_heads)
+                   for lin in (sa.query, sa.key, sa.value))
+        ctx = _merge_heads(self._attention(q, k, v, bias32, scale, dtype,
+                                           attn_rate, gen))
+        ao = lp.attention.output
+        attn_out = threshold_dropout(_linear(ctx, ao.dense, dtype), p_hid,
+                                     gen, bits8)
+        x = ao.LayerNorm(attn_out + x, dtype)
+        inter = act(_linear(x, lp.intermediate.dense, dtype))
+        fo = lp.output
+        ffn_out = threshold_dropout(_linear(inter, fo.dense, dtype), p_hid,
+                                    gen, bits8)
+        return fo.LayerNorm(ffn_out + x, dtype)
+
+    def _remat_layer(self, lp: BertLayer, x: torch.Tensor,
+                     bias32: torch.Tensor, attn_rate: float,
+                     gen: Optional[torch.Generator]) -> torch.Tensor:
+        """The layer under ``torch.utils.checkpoint``: its activations are
+        recomputed in the backward (``remat_policy`` "full"), or all but the
+        matrix products' outputs ("dots", the JAX ``checkpoint_dots``).
+
+        The recompute replays the layer's dropout: the generator's state
+        before the layer is kept and set again for the recompute, so the
+        threshold masks and the fused kernel's seeds come out the same; the
+        state the recompute found is put back after it, for whatever draws
+        from the generator next."""
+        state = None if gen is None else gen.get_state()
+        calls = [0]
+
+        def run(x):
+            calls[0] += 1
+            if calls[0] == 1 or gen is None:
+                return self._layer(lp, x, bias32, attn_rate, gen)
+            after = gen.get_state()
+            gen.set_state(state)
+            try:
+                return self._layer(lp, x, bias32, attn_rate, gen)
+            finally:
+                gen.set_state(after)
+
+        kw = {}
+        if self.config.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(run, x, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
-        if not deterministic and cfg.remat:
-            raise NotImplementedError(
-                "remat=True in training is not ported yet (ROADMAP.md Queue "
-                "1: remat in training, which must replay each layer's "
-                "dropout generator state)")
         p_attn = cfg.attention_probs_dropout_prob
         p_hid = cfg.hidden_dropout_prob
         use_dropout = (not deterministic) and (p_attn > 0 or p_hid > 0)
@@ -331,28 +405,13 @@ class StackedEncoder(nn.Module):
                              "torch.Generator; pass generator=")
         gen = generator if use_dropout else None
         attn_rate = p_attn if use_dropout else 0.0
-        bits8 = cfg.dropout_bits_dtype == "uint8"
-        dtype = compute_dtype(cfg)
-        n_heads = cfg.num_attention_heads
-        scale = 1.0 / math.sqrt(cfg.head_dim)
-        act = ACT2FN[cfg.hidden_act]
+        # remat only matters where autograd records the forward
+        layer = (self._remat_layer if cfg.remat and torch.is_grad_enabled()
+                 else self._layer)
         bias32 = attn_bias.float()
-        x = hidden.to(dtype)
+        x = hidden.to(compute_dtype(cfg))
         for lp in self.layer:
-            sa = lp.attention.self
-            q, k, v = (_split_heads(_linear(x, lin, dtype), n_heads)
-                       for lin in (sa.query, sa.key, sa.value))
-            ctx = _merge_heads(self._attention(q, k, v, bias32, scale, dtype,
-                                               attn_rate, gen))
-            ao = lp.attention.output
-            attn_out = threshold_dropout(_linear(ctx, ao.dense, dtype),
-                                         p_hid, gen, bits8)
-            x = ao.LayerNorm(attn_out + x, dtype)
-            inter = act(_linear(x, lp.intermediate.dense, dtype))
-            fo = lp.output
-            ffn_out = threshold_dropout(_linear(inter, fo.dense, dtype),
-                                        p_hid, gen, bits8)
-            x = fo.LayerNorm(ffn_out + x, dtype)
+            x = layer(lp, x, bias32, attn_rate, gen)
         return x
 
 

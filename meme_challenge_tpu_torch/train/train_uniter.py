@@ -2,25 +2,30 @@
 
 Counterpart of ``meme_challenge_tpu/train/train_uniter.py``, with the same
 flags plus ``--device`` (default ``cuda``; asking for ``cuda`` without a card
-raises). The reference README's recipe maps directly, with ``--num_folds 0``
-(the fold loop is a later slice):
+raises). The reference README's recipe maps directly:
 
     python -m meme_challenge_tpu_torch.train.train_uniter \
         --data_path dataset --feature_path dataset/img_feats \
         --vocab_file vocab.txt --pretrained_model_file uniter-base.pt \
         --lr 3e-5 --scheduler warmup_cosine --warmup_steps 500 \
         --batch_size 16 --gradient_accumulation 2 --confounder_repeat 3 \
-        --pos_wt 1.8 --max_epoch 30 --patience 5 --num_folds 0 \
+        --pos_wt 1.8 --max_epoch 30 --patience 5 --seed 43 \
+        --num_folds -1 --crossval_dev_size 200 --crossval_use_dev \
         [--compute_bf16] [--fuse_accum] [--device_resident_data]
 
-It fine-tunes with dropout and early stopping, reloads the best checkpoint
-and writes the validation CSV, a CSV per test set and the metrics JSON;
-``--max_epoch 0`` serves ``model_path/model_save_name`` as it is.
-``--pretrained_model_file`` reads reference torch dumps (fine-tuned
-MemeUniter or UNITER pretraining); flax msgpack files raise.
-``--steps_per_dispatch`` and ``--dispatch_unroll`` run their steps as a
-plain loop with the numbers of single steps; ``--slow_rng`` is accepted and
-does nothing (a JAX PRNG switch).
+``--num_folds -1`` writes the fold splits (if missing), fine-tunes every
+fold (``_fold_i`` checkpoints, CSVs and metrics JSON), then runs the
+brute-force and evolutionary ensemble search on the same device and writes
+the ``*_ensemble.csv`` files; ``--num_folds 0`` fine-tunes the default
+train/dev_seen split. Each fine-tune uses dropout and early stopping,
+reloads the best checkpoint and writes the validation CSV, a CSV per test
+set and the metrics JSON; ``--max_epoch 0`` serves
+``model_path/model_save_name`` as it is. ``--pretrained_model_file`` reads
+reference torch dumps (fine-tuned MemeUniter or UNITER pretraining); flax
+msgpack files raise. ``--steps_per_dispatch`` and ``--dispatch_unroll`` run
+their steps as a plain loop with the numbers of single steps; ``--slow_rng``
+is accepted and does nothing (a JAX PRNG switch); ``--mesh_shape`` is
+ignored with a warning (the fold-parallel path is not ported).
 """
 from __future__ import annotations
 
@@ -180,8 +185,8 @@ def main(argv=None):
             uniter_config = uniter_config.replace(
                 attention_score_dtype="bfloat16", dropout_bits_dtype="uint8")
     if config.mesh_shape:
-        logger.warning("--mesh_shape is ignored: the port runs on one "
-                       "device in this slice")
+        logger.warning("--mesh_shape is ignored: the port runs folds one "
+                       "after another on one device")
 
     os.makedirs(config.model_path, exist_ok=True)
     set_seed(config.seed)
@@ -190,7 +195,7 @@ def main(argv=None):
     return train_crossval(
         trainer_factory, config, loader_funcs, test_loaders,
         num_folds=config.num_folds, dev_size=config.crossval_dev_size,
-        use_dev_set=config.crossval_use_dev)
+        use_dev_set=config.crossval_use_dev, device=device)
 
 
 if __name__ == "__main__":

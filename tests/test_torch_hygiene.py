@@ -45,7 +45,11 @@ def test_forbidden_name_check_respects_the_prefix():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
-    assert "meme_challenge_tpu_torch.train.train_uniter" in mods
+    assert {"meme_challenge_tpu_torch.train.train_uniter",
+            "meme_challenge_tpu_torch.train.crossval_driver",
+            "meme_challenge_tpu_torch.data.crossval_splits",
+            "meme_challenge_tpu_torch.ops.device_metrics",
+            "meme_challenge_tpu_torch.ensemble.ensemble"} <= set(mods)
     # modules an interpreter start-up hook may preload are not the port's
     code = (
         "import importlib, json, sys\n"

@@ -217,11 +217,87 @@ def test_training_without_generator_raises():
 
 
 def test_remat_training_raises():
-    """remat=True with dropout on is not ported (ROADMAP.md): training
-    raises, inference runs (remat changes no value there)."""
+    """remat=True keeps the encoder's rules: training with dropout on and no
+    generator raises, inference runs (remat changes no value there)."""
     model = torch_model(flax_params(), remat=True)
     tb = {k: torch.from_numpy(v) for k, v in make_batch().items()}
-    with pytest.raises(NotImplementedError, match="remat"):
-        model(tb, deterministic=False, generator=torch.Generator())
+    with pytest.raises(ValueError, match="Generator"):
+        model(tb, deterministic=False)
     with torch.no_grad():
-        assert torch.isfinite(model(tb)).all()
+        assert torch.equal(model(tb), torch_model(flax_params())(tb))
+
+
+# the fused kernel (its plain version here) and the plain attention branch
+REMAT_ATTENTION = ("fused", "fused_blocked", "plain")
+
+
+def _loss_and_grads(model, batch, generator=None):
+    labels, mask = torch.tensor([1, 0, 1]), torch.tensor([1, 1, 0])
+    logits = model({k: torch.from_numpy(v) for k, v in batch.items()},
+                   deterministic=False, generator=generator)
+    loss, _ = bce_logits_loss(logits, labels, mask, pos_weight=1.8)
+    loss.backward()
+    return loss.item(), {n: p.grad.numpy() for n, p in
+                         model.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("attention", REMAT_ATTENTION)
+def test_remat_loss_and_grads_match_jax(attention, policy):
+    """Dropout off: the loss and every gradient with remat (each layer
+    checkpointed; "dots" keeping the products) against JAX ``remat=True``
+    with the same policy, to the tolerance of the plain gradient parity."""
+    params = flax_params()
+    cfg = dict(ATTENTION[attention], **NO_DROPOUT, remat=True,
+               remat_policy=policy)
+    batch = make_batch(seed=8)
+    labels, mask = np.array([1, 0, 1], np.int32), np.array([1, 1, 0],
+                                                           np.int32)
+    jmodel = JaxMemeUniter(JaxUniterConfig(**{**SMALL, **cfg}))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_fn(p):
+        logits = jmodel.apply({"params": p}, jb, deterministic=False)
+        return jax_bce_logits(logits, jnp.asarray(labels), jnp.asarray(mask),
+                              pos_weight=1.8)[0]
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(params)
+    ref = port_tree_from_jax(jgrads)
+    loss, grads = _loss_and_grads(torch_model(params, **cfg), batch)
+    assert abs(loss - float(jloss)) <= 1e-6
+    top = max(np.abs(r).max() for r in ref.values())
+    assert set(grads) <= set(ref)
+    for n, r in ref.items():
+        g = grads.get(n, np.zeros_like(r))
+        if n.endswith(NOISE_ONLY):
+            assert max(np.abs(g).max(), np.abs(r).max()) <= NOISE_TOL * top, n
+            continue
+        err = np.abs(g - r).max()
+        assert err <= GRAD_TOL_FP32 * np.abs(r).max(), (n, err)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("attention", REMAT_ATTENTION)
+def test_remat_replays_dropout(attention, policy):
+    """Dropout 0.1 / 0.1 from one generator seed: the loss and gradients with
+    remat equal those without it bit for bit (the recompute replays the
+    threshold masks and the kernel's seeds), the generator ends where it
+    would without remat, and the dropout was on."""
+    params = flax_params()
+    batch = make_batch(seed=9)
+    out, ends = {}, {}
+    for remat in (False, True):
+        gen = torch.Generator().manual_seed(11)
+        model = torch_model(params, remat=remat, remat_policy=policy,
+                            **ATTENTION[attention])
+        out[remat] = _loss_and_grads(model, batch, gen)
+        ends[remat] = torch.rand(4, generator=gen)
+    (l0, g0), (l1, g1) = out[False], out[True]
+    assert l1 == l0
+    assert set(g0) == set(g1)
+    for n in g0:
+        np.testing.assert_array_equal(g1[n], g0[n], err_msg=n)
+    assert torch.equal(ends[True], ends[False])
+    off = _loss_and_grads(torch_model(params, **ATTENTION[attention],
+                                      **NO_DROPOUT), batch)
+    assert off[0] != l0
