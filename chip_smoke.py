@@ -63,6 +63,23 @@ Phases, each of which makes the script exit non-zero if it fails:
    candidates' ``ensemble_scores`` on the card against the host AUROC of
    the card's own mixes (1e-6), and the card's brute-force best score
    against the same search on the CPU (within 2 / (n_pos · n_neg)).
+9. Fold-parallel: (a) both kernels at the fold-stacked shapes of F 3 folds
+   (per-sample B 48 = 3 × 16, pair-blocked 3 × 32 with the block and the
+   seeds of one fold), fp32 and bf16, rate 0 and 0.1, forward and backward
+   against the plain versions (the kernel phase's tolerances, the same
+   zero positions), the pair-blocked call also against three separate
+   launches with the per-fold seeds; (b) the recipe of phase 6 through the
+   CLI with ``--mesh_shape 1 --mesh_axes fold``, 2 epochs: every fold's
+   checkpoint, CSVs and metrics JSON, the ensemble CSVs, and the attention
+   launches, exactly 12 × (fold-stacked micro-batches + eval batches)
+   forward and 12 × micro-batches backward, with no factor of F, all on
+   ``mma_tf32x3``; train memes/s over all folds and a fold-stacked epoch's
+   wall time beside phase 6's; (c) one full-width fold-stacked
+   micro-batch at F 3, dropout on, against the three per-fold MemeUniters
+   on the card (loss and every gradient within 1e-4 of its largest
+   magnitude); (d) one optimizer step at F 1, 3 and 15 (remat "dots",
+   fp32): wall and host-issue ms, launches (torch.profiler), memes/s and
+   peak memory. Every number beside the card's name and power limit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -562,6 +579,9 @@ class PassLog:
         import logging
 
         self.passes, self.epochs, self.folds = [], [], []
+        # fold-parallel: (steps, micro-batches a step) per epoch, the
+        # stacked batches of each pass, and (GB, s) of each resume file
+        self.fold_steps, self.fold_passes, self.fold_saves = [], [], []
         parent = self
 
         class Handler(logging.Handler):
@@ -576,18 +596,26 @@ class PassLog:
                 elif msg.startswith(("Starting fold",
                                      "Cross validation finished")):
                     parent.folds.append(record.created)
+                elif str(record.msg).startswith("[fold-parallel] epoch %d: "):
+                    _, steps, _, accum = record.args[:4]
+                    parent.fold_steps.append((int(steps), int(accum)))
+                elif msg.startswith("fold-parallel pass"):
+                    parent.fold_passes.append(int(record.args[1]))
+                elif msg.startswith("[fold-parallel] resume file"):
+                    parent.fold_saves.append(record.args[1:3])
 
         self.handler = Handler(level=logging.INFO)
         for name in ("meme_challenge_tpu_torch.train",
-                     "meme_challenge_tpu_torch.crossval"):
+                     "meme_challenge_tpu_torch.crossval",
+                     "meme_challenge_tpu_torch.fold_parallel"):
             logger = logging.getLogger(name)
             logger.setLevel(logging.INFO)
             logger.addHandler(self.handler)
 
     def clear(self):
-        self.passes.clear()
-        self.epochs.clear()
-        self.folds.clear()
+        for records in (self.passes, self.epochs, self.folds,
+                        self.fold_steps, self.fold_passes, self.fold_saves):
+            records.clear()
 
 
 def forward_breakdown(torch, model, batch, dtype: str) -> None:
@@ -1084,7 +1112,8 @@ def crossval_phase(torch, work: str, synth: dict, passlog) -> dict:
     per-sample kernel in float32, dropout 0.1, then the ensemble search on
     the card. Checks the splits, every fold's artifacts, the launch counts
     over all folds and their route, that the device EA ran, and the
-    ensemble CSVs; returns the launches of each (kernel, dtype)."""
+    ensemble CSVs; returns the launches of each (kernel, dtype) and the
+    folds' (memes, seconds) epochs."""
     from meme_challenge_tpu_torch.core.config import UniterConfig
     from meme_challenge_tpu_torch.data.crossval_splits import crossval_dir
     from meme_challenge_tpu_torch.ensemble import ensemble as E
@@ -1191,7 +1220,8 @@ def crossval_phase(torch, work: str, synth: dict, passlog) -> dict:
         % (ens_wall, min(4 ** n_folds, 10000), ran,
            ens["score"], ["%.3f" % w for w in ens["config"]["weights"]],
            ens["config"]["on_logits"], ens["threshold"], rows))
-    return {(name, dtype): counts[name], (bwd, dtype): counts[bwd]}
+    return ({(name, dtype): counts[name], (bwd, dtype): counts[bwd]},
+            list(passlog.epochs))
 
 
 REMAT_TOL = 1e-6
@@ -1359,6 +1389,404 @@ def ensemble_scale_phase(torch) -> None:
         fail("ensemble at the recipe's size: scores disagree")
 
 
+# ------------------------------------------------------------------ phase 9
+
+FOLDS = 3
+CARD = [""]  # the nvidia-smi name and power limit, beside every number
+
+
+def on_card(msg: str) -> str:
+    return "%s [%s]" % (msg, CARD[0])
+
+
+def fold_kernel_checks(torch, A) -> None:
+    """Phase 9a: both kernels at the fold-stacked shapes of FOLDS folds,
+    fp32 and bf16, rate 0 and 0.1: forward and backward against the plain
+    versions (TOL, relative for the backward; the same zero positions under
+    dropout, read through one-hot v windows); the pair-blocked call also
+    against FOLDS separate launches with the per-fold seeds."""
+    import functools
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    scale, rate = 1.0 / D ** 0.5, 0.1
+    for name, wrapper, plain, fold_b in (
+            ("fused_attention", A.fused_attention, A.fused_attention_plain,
+             B),
+            ("fused_attention_blocked", A.fused_attention_blocked,
+             A.fused_attention_blocked_plain, 2 * B)):
+        blocked = name.endswith("blocked")
+        batch = FOLDS * fold_b
+        n_seeds = (A.blocked_seed_count(batch, H, FOLDS) if blocked
+                   else batch)
+        group = A._largest_block(fold_b * H) if blocked else H
+        fwd = functools.partial(wrapper, folds=FOLDS)
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, bias = attention_inputs(torch, dtype, gen, batch)
+            do = torch.randn(q.shape, generator=gen,
+                             device="cuda").to(q.dtype)
+            seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds,), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            err_fwd, rel_bwd, sep = 0.0, 0.0, 0.0
+            for r in (0.0, rate):
+                out = fwd(q, k, v, bias, scale, r, seeds)
+                ref = plain(q, k, v, bias, scale, r, seeds, folds=FOLDS)
+                err_fwd = max(err_fwd, (out.float() - ref.float()).abs()
+                              .max().item())
+                got = kernel_grads(torch, fwd, q, k, v, bias, do, scale, r,
+                                   seeds)
+                ref_g = A.fused_attention_bwd_plain(q, k, v, bias, do, scale,
+                                                    r, seeds, group)
+                rel_bwd = max(rel_bwd, _rel_err(torch, got, ref_g)[1])
+                if blocked:  # FOLDS separate launches, per-fold seeds
+                    n = n_seeds // FOLDS
+                    for f in range(FOLDS):
+                        sl = slice(f * fold_b, (f + 1) * fold_b)
+                        args = (q[sl], k[sl], v[sl], bias[sl])
+                        one = wrapper(*args, scale, r,
+                                      seeds[f * n:(f + 1) * n])
+                        one_g = kernel_grads(torch, wrapper, *args, do[sl],
+                                             scale, r,
+                                             seeds[f * n:(f + 1) * n])
+                        for a, b in zip((out[sl],) + tuple(
+                                g[sl] for g in got), (one,) + tuple(one_g)):
+                            sep = max(sep, (a.float() - b.float()).abs()
+                                      .max().item())
+            zeros_equal = True
+            for c in (0, 64, 96):
+                probe = torch.zeros_like(v)
+                d_idx = torch.arange(D, device="cuda")
+                probe[:, :, c + d_idx, d_idx] = 1
+                zeros_equal &= bool(torch.equal(
+                    fwd(q, k, probe, bias, scale, rate, seeds) == 0,
+                    plain(q, k, probe, bias, scale, rate, seeds,
+                          folds=FOLDS) == 0))
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            log(on_card(
+                "fold-parallel kernel %s %s at F %d x B %d (B %d in the "
+                "kernel's batch axis, seeds %d): forward max_abs_err %.3g, "
+                "backward relative error %.3g (tol %g), zero_positions_"
+                "equal=%s%s" % (name, dtype, FOLDS, fold_b, batch, n_seeds,
+                                err_fwd, rel_bwd, tol, zeros_equal,
+                                "; against %d separate launches with the "
+                                "per-fold seeds: max_abs_err %.3g"
+                                % (FOLDS, sep) if blocked else "")))
+            if not (err_fwd <= tol and rel_bwd <= tol and zeros_equal
+                    and sep <= tol):
+                fail("fold-stacked kernel %s %s disagrees" % (name, dtype))
+
+
+def fold_cli_phase(torch, work: str, synth: dict, passlog,
+                   seq_epochs: list) -> dict:
+    """Phase 9b: the crossval phase's recipe through the CLI with
+    --mesh_shape 1 --mesh_axes fold, 2 epochs, at full width, fp32,
+    per-sample kernel: every fold's checkpoint, CSVs and metrics JSON, the
+    ensemble CSVs (the device EA ran), and the launches: 12 layers x
+    (fold-stacked micro-batches + eval batches) forward and 12 x
+    micro-batches backward, no factor of F, all on mma_tf32x3. Returns the
+    launches of each (kernel, dtype)."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.ensemble import ensemble as E
+    from meme_challenge_tpu_torch.ops import attention as A
+    from meme_challenge_tpu_torch.train import train_uniter
+
+    name, dtype, bwd = "fused_attention", "float32", "fused_attention_bwd"
+    layers = UniterConfig().num_hidden_layers
+    run_dir = os.path.join(work, "fold_parallel")
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(run_dir, "uniter.json")
+    with open(cfg_path, "w") as f:
+        json.dump(UniterConfig(use_pallas_attention=True).to_dict(), f)
+    argv = ["--data_path", synth["root"],
+            "--feature_path", synth["feature_dir"],
+            "--vocab_file", synth["vocab"], "--model_path", run_dir,
+            "--model_save_name", "cv.ckpt", "--uniter_config", cfg_path,
+            "--max_epoch", "2", "--num_folds", "-1", "--crossval_use_dev",
+            "--crossval_dev_size", "16", "--batch_size", "16",
+            "--gradient_accumulation", str(TRAIN_ACCUM),
+            "--confounder_repeat", "3", "--pos_wt", "1.8",
+            "--scheduler", "warmup_cosine", "--warmup_steps", "2",
+            "--lr", "3e-5", "--seed", "43",
+            "--mesh_shape", "1", "--mesh_axes", "fold"]
+    passlog.clear()
+    ea_runs = E.DEVICE_EA_RUNS["count"]
+    reset_launches(A)
+    t0 = time.time()
+    results = train_uniter.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(A.LAUNCHES)
+    by_route = check_route_counts(A, "fold-parallel", dtype, (name, bwd))
+    n_folds = len(results["val_metrics"])
+    micro = sum(steps * accum for steps, accum in passlog.fold_steps)
+    evals = sum(passlog.fold_passes)
+    want = {name: layers * (micro + evals), bwd: layers * micro}
+    log(on_card(
+        "fold-parallel CLI: %d folds, %d epochs in %.1f s; launches forward "
+        "%d (expected %d = %d layers x (%d fold-stacked micro-batches + %d "
+        "eval batches)), backward %d (expected %d); by route %s"
+        % (n_folds, len(passlog.fold_steps), wall, counts[name], want[name],
+           layers, micro, evals, counts[bwd], want[bwd], by_route)))
+    if not (n_folds >= 2 and len(passlog.fold_steps) == 2
+            and all(counts[k] == want.get(k, 0) for k in counts)):
+        fail("fold-parallel: %d folds, epochs %s, launch counts %s, "
+             "expected %s" % (n_folds, passlog.fold_steps, counts, want))
+    for i, m in enumerate(results["val_metrics"]):
+        base = "cv_fold_%d" % i
+        files = ["%s.ckpt" % base, "%s_metrics.json" % base] + [
+            "%s_%s_preds.csv" % (base, ds) for ds in (
+                "dev_%02d" % i, "dev_seen_%02d" % i, "test_seen",
+                "test_unseen", "dev_unseen")]
+        missing = [f for f in files
+                   if not os.path.isfile(os.path.join(run_dir, f))]
+        if missing or not math.isfinite(m["aucroc"]):
+            fail("fold-parallel fold %d: missing %s, metrics %s"
+                 % (i, missing, m))
+        for f in files[2:]:
+            probs = [float(r[1]) for r in _read_csv(os.path.join(run_dir, f))]
+            if not probs or not all(0.0 <= p <= 1.0 for p in probs):
+                fail("fold-parallel: bad predictions in " + f)
+        with open(os.path.join(run_dir, files[1])) as f:
+            if set(json.load(f)) != {"dev", "test"}:
+                fail("fold-parallel: metrics JSON of fold %d" % i)
+    ran = E.DEVICE_EA_RUNS["count"] - ea_runs
+    ens = [f for f in os.listdir(run_dir) if f.endswith("_ensemble.csv")]
+    if results.get("ensemble") is None or ran != 1 or len(ens) != 4:
+        fail("fold-parallel: ensemble %s, device EA runs %d, CSVs %s"
+             % (results.get("ensemble"), ran, ens))
+    seq_secs = sum(s for _, s in seq_epochs)
+    for e, (n, secs) in enumerate(passlog.epochs, 1):
+        log(on_card(
+            "fold-parallel epoch %d: %d memes over %d folds in %.4f s = "
+            "%.1f memes/s (phase 6, folds one after another: %d memes in "
+            "%.4f s = %.1f memes/s)"
+            % (e, n, n_folds, secs, n / secs,
+               sum(m for m, _ in seq_epochs), seq_secs,
+               sum(m for m, _ in seq_epochs) / seq_secs)))
+    log(on_card("fold-parallel: %d fold checkpoints, %d CSVs + metrics JSON "
+                "a fold, 4 ensemble CSVs (device EA runs %d); dev AUROC %s; "
+                "resume file written after each epoch: %s"
+                % (n_folds, 5, ran, ["%.4f" % m["aucroc"]
+                                     for m in results["val_metrics"]],
+                   ", ".join("%.3f GB in %.3f s" % (gb, secs)
+                             for gb, secs in passlog.fold_saves))))
+    return {(name, dtype): counts[name], (bwd, dtype): counts[bwd]}
+
+
+def _fold_batches(torch, ds, folds: int, accum: int, start: int = 0):
+    """[folds, accum, 16, ...] model inputs, labels and sample masks on the
+    card: fold f's micro-batch a is rows start + 16·(accum·f + a) of ``ds``,
+    wrapping around."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.train.steps import (
+        MODEL_INPUT_KEYS,
+        TRAIN_KEYS,
+        to_device,
+    )
+
+    groups = []
+    for f in range(folds):
+        micro = []
+        for a in range(accum):
+            first = start + 16 * (accum * f + a)
+            b = ds.batch([(first + i) % len(ds) for i in range(16)])
+            b["sample_mask"] = np.ones(16, np.int32)
+            b.pop("ids")
+            micro.append(b)
+        groups.append({k: np.stack([m[k] for m in micro]) for k in micro[0]})
+    host = {k: np.stack([g[k] for g in groups]) for k in groups[0]}
+    return to_device(host, "cuda", keys=MODEL_INPUT_KEYS + TRAIN_KEYS)
+
+
+def _train_dataset(synth: dict):
+    from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+
+    return MemeDataset(synth["train"], feature_dir=synth["feature_dir"],
+                       tokenizer=BertTokenizer(synth["vocab"]),
+                       max_txt_len=60, max_bb=100, img_dim=2048)
+
+
+def fold_grad_check(torch, synth: dict) -> None:
+    """Phase 9c: one full-width fold-stacked micro-batch of FOLDS x 16
+    (fp32, dropout 0.1 / 0.1, each fold its own generator) against the
+    FOLDS per-fold MemeUniters on the card given the same generators: each
+    fold's loss and every gradient within GRAD_TOL of the gradient's
+    largest magnitude (a gradient zero up to rounding, the key bias's,
+    against a thousandth of the fold's largest)."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.models.uniter import (
+        FoldStack,
+        init_meme_uniter,
+    )
+    from meme_challenge_tpu_torch.train.losses import bce_logits_loss
+
+    batch = {k: v[:, 0] for k, v in _fold_batches(
+        torch, _train_dataset(synth), FOLDS, 1).items()}
+    cfg = UniterConfig(use_pallas_attention=True)
+    models = [init_meme_uniter(cfg, 1, "cuda", torch_generator(20 + f,
+                                                               "cuda"))
+              for f in range(FOLDS)]
+    stack = FoldStack.from_models(iter(models), FOLDS)
+    logits = stack(batch, deterministic=False, generators=[
+        torch_generator(30 + f, "cuda") for f in range(FOLDS)])
+    losses, _ = bce_logits_loss(logits, batch["labels"],
+                                batch["sample_mask"], 1.8)
+    losses.sum().backward()
+    worst, worst_name, loss_rel = 0.0, "", 0.0
+    for f, model in enumerate(models):
+        b = {k: v[f] for k, v in batch.items()}
+        out = model(b, deterministic=False,
+                    generator=torch_generator(30 + f, "cuda"))
+        loss, _ = bce_logits_loss(out, b["labels"], b["sample_mask"], 1.8)
+        loss.backward()
+        loss_rel = max(loss_rel, abs(loss.item() - losses[f].item())
+                       / abs(loss.item()))
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}
+        top = max(float(g.abs().max()) for g in grads.values())
+        for n, g in grads.items():
+            scale = max(float(g.abs().max()), 1e-3 * top)
+            rel = float((stack.params[n].grad[f] - g).abs().max()) / scale
+            if rel > worst:
+                worst, worst_name = rel, "fold %d %s" % (f, n)
+    torch.cuda.synchronize()
+    log(on_card("fold-parallel grad: F %d x 16 memes, fp32, dropout on, "
+                "fold-stacked vs per-fold MemeUniters on the card: loss "
+                "relative %.3g; worst gradient %.3g of its largest magnitude "
+                "(%s; tol %g)" % (FOLDS, loss_rel, worst, worst_name,
+                                   GRAD_TOL)))
+    if not (loss_rel <= GRAD_TOL and worst <= GRAD_TOL):
+        fail("fold-stacked gradients disagree with the per-fold models'")
+
+
+def _measure_step(torch, one, memes: int, tag: str, base: int) -> None:
+    """Wall and host-issue ms (medians of 3 after one warm-up step), the
+    peak of allocated memory above ``base``, and one profiled step's
+    kernel time, idle share, launches and host time by operator."""
+    one()
+    torch.cuda.synchronize()
+    static = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    issue, wall = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    wall_ms, issue_ms = statistics.median(wall), statistics.median(issue)
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+        busy, n_launch, host_rows = 0.0, 0, []
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                busy += getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+            else:
+                host_rows.append((e.self_cpu_time_total / 1e3, e.count,
+                                  e.key))
+                if "LaunchKernel" in e.key:
+                    n_launch += e.count
+        host_rows.sort(reverse=True)
+        prof_line = ("profiled step: wall %.1f ms, kernels %.1f ms, device "
+                     "idle share %.3f, %d kernel launches; host self ms by "
+                     "operator: %s" % (pwall, busy, 1.0 - busy / pwall,
+                                       n_launch, "; ".join(
+                                           "%s %.1f x%d" % (k[:32], t, c)
+                                           for t, c, k in host_rows[:6])))
+    except Exception as e:  # informational: a missing trace fails nothing
+        prof_line = "profiler unavailable (%s)" % e
+    log(on_card(
+        "%s (%d memes, Adam, remat dots, fp32): wall %.1f ms, host issue "
+        "%.1f ms, %.1f memes/s; %s; memory: weights + moments %.2f GiB "
+        "between steps, peak %.2f GiB of %.1f"
+        % (tag, memes, wall_ms, issue_ms, memes / wall_ms * 1e3, prof_line,
+           static, peak,
+           torch.cuda.get_device_properties(0).total_memory / 2 ** 30)))
+
+
+def fold_step_phase(torch, synth: dict) -> None:
+    """Phase 9d: one optimizer step (accumulation 2 x batch 16 a fold, Adam
+    with bf16 moments, global-norm clipping, dropout on, remat "dots",
+    fp32) of the sequential path (one MemeUniter, make_train_step) and of
+    the fold-stacked path at F 1, 3 and 15: wall and host-issue ms,
+    launches, the device's idle share and host time by operator from
+    torch.profiler, memes/s and the peak of allocated memory (weights,
+    gradients, moments and activations)."""
+    from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        fold_dropout_generators,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.models.uniter import (
+        FoldStack,
+        init_meme_uniter,
+    )
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+    from meme_challenge_tpu_torch.train.steps import (
+        TrainState,
+        create_train_state,
+        make_fold_train_step,
+        make_train_step,
+    )
+
+    ds = _train_dataset(synth)
+    cfg = UniterConfig(use_pallas_attention=True, remat=True,
+                       remat_policy="dots")
+    c = TrainConfig()
+    loss_fn = make_loss_fn("bce_logits", 1.8)
+
+    def optimizer(folds):
+        return Optimizer("adam", 3e-5, lambda step: 1.0, beta1=c.beta1,
+                         beta2=c.beta2, weight_decay=c.weight_decay,
+                         max_grad_norm=c.max_grad_norm,
+                         mu_dtype=c.adam_mu_dtype, nu_dtype=c.adam_nu_dtype,
+                         folds=folds)
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = init_meme_uniter(cfg, 1, "cuda", torch_generator(0, "cuda"))
+    opt = optimizer(0)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, loss_fn, opt, accum_steps=TRAIN_ACCUM)
+    batch = {k: v[0] for k, v in _fold_batches(torch, ds, 1,
+                                               TRAIN_ACCUM).items()}
+    _measure_step(torch, lambda: step(state, batch, dropout_generator(
+        43, state.step, "cuda")), TRAIN_ACCUM * 16,
+        "sequential step (one MemeUniter)", base)
+    del model, opt, state, step, batch
+    for folds in (1, 3, 15):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        stack = FoldStack.from_models(
+            (init_meme_uniter(cfg, 1, "cuda", torch_generator(f, "cuda"))
+             for f in range(folds)), folds)
+        opt = optimizer(folds)
+        state = TrainState(stack, opt.init(stack.params))
+        step = make_fold_train_step(stack, loss_fn, opt,
+                                    accum_steps=TRAIN_ACCUM)
+        batch = _fold_batches(torch, ds, folds, TRAIN_ACCUM)
+        _measure_step(torch, lambda: step(
+            state, batch, fold_dropout_generators(43, folds, state.step,
+                                                  "cuda")),
+            folds * TRAIN_ACCUM * 16, "fold-parallel step F %d" % folds, base)
+        del stack, opt, state, step, batch
+
+
 def main(argv) -> None:
     if not os.path.isdir(PACKAGE):
         fail("meme_challenge_tpu_torch/ not found beside chip_smoke.py: run "
@@ -1376,6 +1804,7 @@ def main(argv) -> None:
     if smi.returncode != 0:
         fail("nvidia-smi failed: " + smi.stderr.strip())
     card = smi.stdout.strip().splitlines()[0]
+    CARD[0] = card
     log("card: " + card)
     log("torch %s, CUDA %s, python %s" % (torch.__version__,
                                          torch.version.cuda,
@@ -1416,19 +1845,29 @@ def main(argv) -> None:
         synth = make_dataset(work)
         timed("inference", inference_phase, torch, work, synth, passlog)
         launches = timed("train", train_phase, torch, work, synth, passlog)
-        cv_launches = timed("crossval", crossval_phase, torch, work, synth,
-                            passlog)
+        cv_launches, cv_epochs = timed("crossval", crossval_phase, torch,
+                                       work, synth, passlog)
         timed("grad", grad_check, torch, synth)
         timed("remat", remat_check, torch, synth)
         for dtype in ("float32", "bfloat16"):
             timed("breakdown " + dtype, train_breakdown, torch, synth, dtype)
+        from meme_challenge_tpu_torch.ops import attention as A
+
+        timed("fold-parallel kernels", fold_kernel_checks, torch, A)
+        fold_launches = timed("fold-parallel CLI", fold_cli_phase, torch,
+                              work, synth, passlog, cv_epochs)
+        timed("fold-parallel grad", fold_grad_check, torch, synth)
+        timed("fold-parallel steps", fold_step_phase, torch, synth)
     timed("ensemble", ensemble_scale_phase, torch)
-    # the recipe's kernel and dtype also ran the crossval phase: its
-    # launches count with the train phase's
-    for key, n in cv_launches.items():
-        log("launches %s[%s]: train phase %d + crossval phase %d = %d"
-            % (key[0], key[1], launches[key], n, launches[key] + n))
-        launches[key] += n
+    # the recipe's kernel and dtype also ran the crossval and fold-parallel
+    # phases: their launches count with the train phase's
+    for key in cv_launches:
+        total = launches[key] + cv_launches[key] + fold_launches[key]
+        log("launches %s[%s]: train phase %d + crossval phase %d + "
+            "fold-parallel phase %d = %d"
+            % (key[0], key[1], launches[key], cv_launches[key],
+               fold_launches[key], total))
+        launches[key] = total
 
     # "route" is the kind of kernel (hand-written CUDA C++); "body" is the
     # CUDA body the route rule picked at the main path's shape, the one the
@@ -1445,6 +1884,8 @@ def main(argv) -> None:
             "library_ms": r["library_ms"],
             "library_ms_dropout": r["library_ms_dropout"],
             "library_max_abs_err": r["library_max_abs_err"]})
+    # the card again, near the end: long logs are often read from the tail
+    log("card: " + card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,3 +40,13 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     ss = np.random.SeedSequence([int(seed) & 0xFFFFFFFFFFFFFFFF, int(step)])
     return torch_generator(int(ss.generate_state(1, np.uint64)[0]) >> 1,
                            device)
+
+
+def fold_dropout_generators(seed: int, num_folds: int, step: int,
+                            device) -> list:
+    """The dropout generators of optimizer step ``step`` of every fold of a
+    crossval seeded ``seed``: fold f's is the one a sequential run of that
+    fold (seeded ``fold_seed(seed, f)``) draws from at that step, the
+    counterpart of ``fold_in(prng_key(fold_seed(seed, f)), step)``."""
+    return [dropout_generator(fold_seed(seed, f), step, device)
+            for f in range(num_folds)]

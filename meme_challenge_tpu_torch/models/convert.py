@@ -12,13 +12,23 @@ README.md:25-33):
 :func:`meme_uniter_state_from_jax` carries weights across from a flax
 MemeUniter parameter tree given as numpy arrays: it splits the stacked
 ``qkv_kernel [L, H, 3H]`` into three matrices and transposes flax ``[in, out]``
-kernels into torch ``[out, in]`` weights. This module is written anew rather
-than copied: the JAX package's converter imports its flax-side config.
+kernels into torch ``[out, in]`` weights; :func:`fold_stack_state_from_jax`
+does so for F folds at once, into a ``FoldStack``'s ``[F, ...]`` state.
+This module is written anew rather than copied: the JAX package's converter
+imports its flax-side config.
+
+:func:`read_flax_msgpack` decodes the JAX package's flax-msgpack files (its
+``ModelSaver`` dumps: ``flax.serialization.to_bytes`` of ``{"params": ...}``)
+in plain python: the msgpack subset flax writes (maps, arrays, str, bin,
+int, float, bool, nil) and flax's extension types (ndarray 1, native
+complex 2, numpy scalar 3; ``flax.serialization._MsgpackExtType``), with its
+chunked-array leaves. It imports neither ``msgpack`` nor ``flax``.
 """
 from __future__ import annotations
 
+import struct
 import zipfile
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence, Union
 
 import numpy as np
 import torch
@@ -41,15 +51,10 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Load a torch checkpoint onto the CPU; unwraps
     ``{'model_state_dict': ...}`` (reference utils/save.py:53-64).
 
-    A file that is not a torch checkpoint (e.g. the JAX package's flax
-    msgpack ``ModelSaver`` dumps) raises ``ValueError``: reading flax msgpack
-    is queued in ROADMAP.md."""
+    A file that is not a torch checkpoint raises ``ValueError``
+    (:func:`load_pretrained` reads the JAX package's flax-msgpack dumps)."""
     if not is_torch_checkpoint(path):
-        raise ValueError(
-            "%s is not a torch checkpoint; flax msgpack checkpoints of the "
-            "JAX package are not read by the port yet (convert with "
-            "meme_challenge_tpu.models.convert.save_reference_checkpoint)"
-            % path)
+        raise ValueError("%s is not a torch checkpoint" % path)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
         ckpt = ckpt["model_state_dict"]
@@ -98,7 +103,29 @@ def load_pretrained(model: torch.nn.Module, path: str) -> str:
     """Load ``path`` into a MemeUniter: a fine-tuned dump restores every
     weight (strict); a pretraining dump restores the trunk, and the head
     keeps its initial weights (every trunk key must be present). Returns
-    ``"finetuned"`` or ``"pretrain"``."""
+    ``"finetuned"`` or ``"pretrain"``.
+
+    ``path`` is a reference torch dump, or a flax-msgpack ``ModelSaver``
+    dump of the JAX package, read as JAX ``_try_load_flax_params`` reads it
+    (train/train_uniter.py:83-100 there): the tree under ``"params"`` (or
+    the whole tree); with a ``"classifier"`` it is a fine-tuned MemeUniter,
+    else its ``"uniter"`` trunk is loaded."""
+    if not is_torch_checkpoint(path):
+        tree = read_flax_msgpack(path)
+        if not isinstance(tree, dict):
+            raise ValueError("%s is not a torch checkpoint nor a flax "
+                             "parameter tree" % path)
+        params = tree.get("params", tree)
+        if "classifier" in params:
+            model.load_state_dict(meme_uniter_state_from_jax(params),
+                                  strict=True)
+            return "finetuned"
+        state = {k: torch.from_numpy(v) for k, v in
+                 uniter_trunk_state_from_jax(params["uniter"]).items()}
+        state.update({k: v for k, v in model.state_dict().items()
+                      if k.startswith(HEAD_PREFIX)})
+        model.load_state_dict(state, strict=True)
+        return "pretrain"
     sd = load_torch_state_dict(path)
     if any(k.startswith(TRUNK_PREFIX) for k in sd):
         state = meme_uniter_state_from_checkpoint(sd)
@@ -196,3 +223,159 @@ def meme_uniter_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         out[HEAD_PREFIX + "weight"] = _t(params["classifier"]["kernel"])
         out[HEAD_PREFIX + "bias"] = _a(params["classifier"]["bias"])
     return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def fold_stack_state_from_jax(params: Union[Mapping, Sequence[Mapping]]
+                              ) -> Dict[str, torch.Tensor]:
+    """F flax MemeUniter trees (a list), or one tree whose leaves carry a
+    leading fold axis (JAX ``FoldParallelTrainer.state.params``), → the
+    port's fold-stacked state: every MemeUniter ``state_dict`` name with a
+    leading ``[F, ...]`` axis (CPU tensors), as ``FoldStack`` holds it."""
+    if isinstance(params, Mapping):
+        n = len(_leaves(params)[0])
+        params = [_index_tree(params, f) for f in range(n)]
+    states = [meme_uniter_state_from_jax(p) for p in params]
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+def _leaves(tree) -> List[np.ndarray]:
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [np.asarray(tree)]
+
+
+def _index_tree(tree, i: int):
+    if isinstance(tree, Mapping):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+# --------------------------------------------------------------------------
+# flax msgpack, decoded in plain python
+# --------------------------------------------------------------------------
+
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+
+
+def _dtype(name) -> np.dtype:
+    name = name.decode() if isinstance(name, bytes) else name
+    # numpy has no bfloat16: its 16 bits are read as the top of a float32
+    return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
+
+
+def _ndarray(payload: bytes) -> np.ndarray:
+    shape, dtype_name, buffer = _Msgpack(payload).read_all()
+    arr = np.frombuffer(buffer, dtype=_dtype(dtype_name)).reshape(shape)
+    if (dtype_name.decode() if isinstance(dtype_name, bytes)
+            else dtype_name) == "bfloat16":
+        arr = (arr.astype(np.uint32) << 16).view(np.float32)
+    return arr
+
+
+class _Msgpack:
+    """A msgpack decoder for what ``flax.serialization.msgpack_serialize``
+    writes."""
+
+    _FIXED = {0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q", 0xd0: ">b",
+              0xd1: ">h", 0xd2: ">i", 0xd3: ">q", 0xca: ">f", 0xcb: ">d"}
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = memoryview(data), 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def read_all(self):
+        value = self.read()
+        if self.pos != len(self.data):
+            raise ValueError("trailing bytes after the msgpack value")
+        return value
+
+    def read(self):
+        b = self._unpack(">B")
+        if b <= 0x7f:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8f:
+            return self._map(b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return self._array(b & 0x0f)
+        if 0xa0 <= b <= 0xbf:
+            return bytes(self._take(b & 0x1f)).decode()
+        if b == 0xc0:
+            return None
+        if b in (0xc2, 0xc3):
+            return b == 0xc3
+        if b in (0xc4, 0xc5, 0xc6):  # bin 8/16/32
+            return bytes(self._take(self._unpack(
+                {0xc4: ">B", 0xc5: ">H", 0xc6: ">I"}[b])))
+        if b in (0xc7, 0xc8, 0xc9):  # ext 8/16/32
+            n = self._unpack({0xc7: ">B", 0xc8: ">H", 0xc9: ">I"}[b])
+            return self._ext(self._unpack(">b"), bytes(self._take(n)))
+        if 0xd4 <= b <= 0xd8:  # fixext 1/2/4/8/16
+            code = self._unpack(">b")
+            return self._ext(code, bytes(self._take(1 << (b - 0xd4))))
+        if b in self._FIXED:
+            return self._unpack(self._FIXED[b])
+        if b in (0xd9, 0xda, 0xdb):  # str 8/16/32
+            n = self._unpack({0xd9: ">B", 0xda: ">H", 0xdb: ">I"}[b])
+            return bytes(self._take(n)).decode()
+        if b in (0xdc, 0xdd):
+            return self._array(self._unpack(">H" if b == 0xdc else ">I"))
+        if b in (0xde, 0xdf):
+            return self._map(self._unpack(">H" if b == 0xde else ">I"))
+        raise ValueError("byte 0x%02x is not msgpack" % b)
+
+    def _array(self, n: int) -> list:
+        return [self.read() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    @staticmethod
+    def _ext(code: int, payload: bytes):
+        if code == _EXT_NDARRAY:
+            return _ndarray(payload)
+        if code == _EXT_NPSCALAR:
+            return _ndarray(payload)[()]
+        if code == _EXT_COMPLEX:
+            real, imag = _Msgpack(payload).read_all()
+            return complex(real, imag)
+        raise ValueError("unknown msgpack extension type %d" % code)
+
+
+def _unchunk(tree):
+    """flax's chunked leaves (arrays above its chunk size, split into
+    ``{"__msgpack_chunked_array__", "shape", "chunks"}``) back into arrays."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_flax_msgpack(path: str):
+    """The tree of a flax-msgpack file (``flax.serialization.to_bytes``):
+    dicts, lists and numpy leaves. A file that is not msgpack raises
+    ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return _unchunk(_Msgpack(data).read_all())
+    except (ValueError, UnicodeDecodeError, struct.error) as e:
+        raise ValueError("%s is not a torch checkpoint nor flax msgpack: %s"
+                         % (path, e)) from None

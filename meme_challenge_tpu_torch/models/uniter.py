@@ -28,12 +28,20 @@ what ``meme_uniter_params_to_torch`` writes (the ``uniter_model.`` trunk, the
   distributions.
 - ``remat`` checkpoints each encoder layer in training (``_remat_layer``),
   replaying its dropout draws in the recompute.
+- :class:`FoldStack` runs F MemeUniters of one configuration as one model
+  (the JAX fold-parallel trainer's ``vmap`` over a fold axis, written out):
+  every parameter carries a leading ``[F, ...]`` axis, the products are
+  batched over F (``bmm``), LayerNorm takes ``[F, 1, 1, H]`` weights, the
+  embedding lookups index each fold's table, and attention runs once for
+  all folds with F in the kernel's batch axis. Fold f's dropout draws from
+  its own generator, in the order and shapes a single MemeUniter draws, so
+  fold f of the stack equals the single model given that generator.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +65,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # the matrix products whose outputs remat_policy "dots" keeps
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-         torch.ops.aten.bmm.default, torch.ops.aten.matmul.default)
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+         torch.ops.aten.matmul.default)
+
+# one torch.Generator, or one per fold of a FoldStack (a fold-stacked
+# tensor's leading axis is the fold axis)
+Generators = Union[torch.Generator, Sequence[torch.Generator], None]
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -117,20 +130,31 @@ def softmax_lowp(scores: torch.Tensor) -> torch.Tensor:
     return _SoftmaxLowp.apply(scores)
 
 
+def _draw(fn, shape, generator: Generators) -> torch.Tensor:
+    """``fn(shape, generator)``; with one generator per fold, each fold's
+    slice (``shape[1:]``) from its own generator, stacked on the fold axis."""
+    if isinstance(generator, torch.Generator):
+        return fn(tuple(shape), generator)
+    if len(generator) != shape[0]:
+        raise ValueError("%d generators for %d folds"
+                         % (len(generator), shape[0]))
+    return torch.stack([fn(tuple(shape[1:]), g) for g in generator])
+
+
 def bernoulli_dropout(x: torch.Tensor, rate: float,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Generators) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 − rate, kept values
     divided by 1 − rate; identity without a generator or at rate 0."""
     if generator is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep_prob
+    keep = _draw(lambda shape, g: torch.rand(shape, generator=g,
+                                             device=x.device),
+                 x.shape, generator) < keep_prob
     return torch.where(keep, x / keep_prob, x.new_zeros(()))
 
 
-def threshold_dropout(x: torch.Tensor, rate: float,
-                      generator: Optional[torch.Generator],
+def threshold_dropout(x: torch.Tensor, rate: float, generator: Generators,
                       bits8: bool = False) -> torch.Tensor:
     """The JAX encoder's integer-threshold dropout (models/uniter.py:284-302
     there): uint32 words kept iff ``bits >= rate·2³²``, scaled by
@@ -141,14 +165,13 @@ def threshold_dropout(x: torch.Tensor, rate: float,
         return x
     if bits8:
         k = min(int(round(rate * 256)), 255)
-        bits = torch.randint(0, 256, x.shape, generator=generator,
-                             device=x.device, dtype=torch.uint8)
-        eff = k / 256.0
+        high, dtype, eff = 256, torch.uint8, k / 256.0
     else:
         k = min(int(rate * (1 << 32)), (1 << 32) - 1)
-        bits = torch.randint(0, 1 << 32, x.shape, generator=generator,
-                             device=x.device, dtype=torch.int64)
-        eff = rate
+        high, dtype, eff = 1 << 32, torch.int64, rate
+    bits = _draw(lambda shape, g: torch.randint(
+        0, high, shape, generator=g, device=x.device, dtype=dtype),
+        x.shape, generator)
     return torch.where(bits >= k, x / (1.0 - eff), x.new_zeros(())).to(x.dtype)
 
 
@@ -300,6 +323,92 @@ class BertLayer(nn.Module):
         self.output = _DenseLN(config.intermediate_size, H, eps)
 
 
+def _attention(cfg: UniterConfig, q, k, v, bias32, scale, dtype, attn_rate,
+               generator: Generators, folds: int = 1):
+    """The encoder's attention core on ``[folds·B, H, S, D]`` heads (the
+    JAX encoder's three branches, models/uniter.py:317-356 there). With one
+    generator per fold, each fold's dropout (the kernel's seeds, or the
+    plain branch's threshold masks) comes from its own generator."""
+    bits8 = cfg.dropout_bits_dtype == "uint8"
+    if cfg.use_pallas_attention:
+        b = q.shape[0] // folds
+        if cfg.pallas_blocked:
+            kernel = fused_attention_blocked
+            n_seed = blocked_seed_count(b, q.shape[1])
+        else:
+            kernel, n_seed = fused_attention, b
+        seeds = None
+        if attn_rate > 0.0:
+            def draw(shape, g):
+                return torch.randint(0, 2 ** 31 - 1, shape, generator=g,
+                                      device=q.device, dtype=torch.int32)
+
+            seeds = (draw((folds * n_seed,), generator)
+                     if isinstance(generator, torch.Generator)
+                     else _draw(draw, (folds, n_seed), generator).reshape(-1))
+        return kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                      bias32, scale, attn_rate, seeds, folds=folds).to(dtype)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if cfg.attention_score_dtype == "bfloat16":
+        # bf16 S^2 storage, softmax math in fp32 (softmax_lowp)
+        probs = softmax_lowp((scores + bias32).to(torch.bfloat16))
+    else:
+        probs = torch.softmax(scores + bias32, dim=-1)
+    probs = probs.to(dtype)
+    if not isinstance(generator, torch.Generator) and generator is not None:
+        # per-fold masks: the fold axis leads
+        probs = threshold_dropout(
+            probs.reshape((folds, -1) + probs.shape[1:]), attn_rate,
+            generator, bits8).reshape(probs.shape)
+    else:
+        probs = threshold_dropout(probs, attn_rate, generator, bits8)
+    return torch.matmul(probs.float(), v.float()).to(dtype)
+
+
+def _generator_list(generator: Generators) -> List[torch.Generator]:
+    if generator is None:
+        return []
+    if isinstance(generator, torch.Generator):
+        return [generator]
+    return list(generator)
+
+
+def _remat(config: UniterConfig, layer_fn, x: torch.Tensor,
+           generator: Generators) -> torch.Tensor:
+    """``layer_fn(x)`` under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward (``remat_policy`` "full"), or all but the
+    matrix products' outputs ("dots", the JAX ``checkpoint_dots``).
+
+    The recompute replays the layer's dropout: each generator's state
+    before the layer (every fold's, for a FoldStack) is kept and set again
+    for the recompute, so the threshold masks and the fused kernel's seeds
+    come out the same; the states the recompute found are put back after
+    it, for whatever draws from the generators next."""
+    gens = _generator_list(generator)
+    states = [g.get_state() for g in gens]
+    calls = [0]
+
+    def run(x):
+        calls[0] += 1
+        if calls[0] == 1 or not gens:
+            return layer_fn(x)
+        after = [g.get_state() for g in gens]
+        for g, st in zip(gens, states):
+            g.set_state(st)
+        try:
+            return layer_fn(x)
+        finally:
+            for g, st in zip(gens, after):
+                g.set_state(st)
+
+    kw = {}
+    if config.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
+
+
 class StackedEncoder(nn.Module):
     """L post-LN BERT layers (reference UniterEncoder, model/layer.py)."""
 
@@ -308,32 +417,6 @@ class StackedEncoder(nn.Module):
         self.config = config
         self.layer = nn.ModuleList(
             [BertLayer(config) for _ in range(config.num_hidden_layers)])
-
-    def _attention(self, q, k, v, bias32, scale, dtype, attn_rate,
-                   generator):
-        cfg = self.config
-        bits8 = cfg.dropout_bits_dtype == "uint8"
-        if cfg.use_pallas_attention:
-            if cfg.pallas_blocked:
-                kernel = fused_attention_blocked
-                n_seed = blocked_seed_count(q.shape[0], q.shape[1])
-            else:
-                kernel, n_seed = fused_attention, q.shape[0]
-            seeds = None
-            if attn_rate > 0.0:
-                seeds = torch.randint(0, 2 ** 31 - 1, (n_seed,),
-                                      generator=generator, device=q.device,
-                                      dtype=torch.int32)
-            return kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                          bias32, scale, attn_rate, seeds).to(dtype)
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        if cfg.attention_score_dtype == "bfloat16":
-            # bf16 S^2 storage, softmax math in fp32 (softmax_lowp)
-            probs = softmax_lowp((scores + bias32).to(torch.bfloat16))
-        else:
-            probs = torch.softmax(scores + bias32, dim=-1)
-        probs = threshold_dropout(probs.to(dtype), attn_rate, generator, bits8)
-        return torch.matmul(probs.float(), v.float()).to(dtype)
 
     def _layer(self, lp: BertLayer, x: torch.Tensor, bias32: torch.Tensor,
                attn_rate: float, gen: Optional[torch.Generator]
@@ -348,8 +431,8 @@ class StackedEncoder(nn.Module):
         q, k, v = (_split_heads(_linear(x, lin, dtype),
                                 cfg.num_attention_heads)
                    for lin in (sa.query, sa.key, sa.value))
-        ctx = _merge_heads(self._attention(q, k, v, bias32, scale, dtype,
-                                           attn_rate, gen))
+        ctx = _merge_heads(_attention(cfg, q, k, v, bias32, scale, dtype,
+                                      attn_rate, gen))
         ao = lp.attention.output
         attn_out = threshold_dropout(_linear(ctx, ao.dense, dtype), p_hid,
                                      gen, bits8)
@@ -363,35 +446,9 @@ class StackedEncoder(nn.Module):
     def _remat_layer(self, lp: BertLayer, x: torch.Tensor,
                      bias32: torch.Tensor, attn_rate: float,
                      gen: Optional[torch.Generator]) -> torch.Tensor:
-        """The layer under ``torch.utils.checkpoint``: its activations are
-        recomputed in the backward (``remat_policy`` "full"), or all but the
-        matrix products' outputs ("dots", the JAX ``checkpoint_dots``).
-
-        The recompute replays the layer's dropout: the generator's state
-        before the layer is kept and set again for the recompute, so the
-        threshold masks and the fused kernel's seeds come out the same; the
-        state the recompute found is put back after it, for whatever draws
-        from the generator next."""
-        state = None if gen is None else gen.get_state()
-        calls = [0]
-
-        def run(x):
-            calls[0] += 1
-            if calls[0] == 1 or gen is None:
-                return self._layer(lp, x, bias32, attn_rate, gen)
-            after = gen.get_state()
-            gen.set_state(state)
-            try:
-                return self._layer(lp, x, bias32, attn_rate, gen)
-            finally:
-                gen.set_state(after)
-
-        kw = {}
-        if self.config.remat_policy == "dots":
-            kw["context_fn"] = functools.partial(
-                create_selective_checkpoint_contexts, _save_dots)
-        return checkpoint(run, x, use_reentrant=False,
-                          preserve_rng_state=False, **kw)
+        """The layer under ``torch.utils.checkpoint`` (:func:`_remat`)."""
+        return _remat(self.config, lambda x: self._layer(
+            lp, x, bias32, attn_rate, gen), x, gen)
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
                 deterministic: bool = True,
@@ -544,3 +601,196 @@ def init_meme_uniter(config: UniterConfig, n_classes: int, device,
     model = model.to_empty(device=torch.device(device))
     init_weights(model, generator, config.initializer_range)
     return model.eval()
+
+
+def _fold_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-fold ``[F, H]`` vector as ``[F, 1, ..., H]``, broadcasting
+    against a fold-stacked tensor of ``ndim`` dimensions."""
+    return t.reshape(t.shape[:1] + (1,) * (ndim - 2) + t.shape[1:])
+
+
+class FoldStack:
+    """F MemeUniters of one configuration, run as one model.
+
+    ``params`` maps every name of ``MemeUniter.state_dict()`` to a leaf
+    tensor ``[F, ...]`` (fold f's weight at index f), with ``requires_grad``
+    set; :meth:`forward` takes fold-stacked batches ``[F, B, ...]`` and
+    returns logits ``[F, B, n_classes]``. Each layer runs once for all F
+    folds: the products are ``bmm`` over F (bias added after the product,
+    each rounded to the compute dtype, as the encoder's ``_linear``; the
+    ``nn.Linear`` layers as ``baddbmm``), attention takes the F·B samples in
+    one kernel launch (``folds=F``), so a forward's launches do not grow
+    with F except for the per-fold dropout draws.
+    """
+
+    def __init__(self, config: UniterConfig, n_classes: int,
+                 params: Dict[str, torch.Tensor]):
+        self.config, self.n_classes = config, n_classes
+        self.params = params
+        self.folds = int(next(iter(params.values())).shape[0])
+        for p in params.values():
+            if p.shape[0] != self.folds:
+                raise ValueError("parameters of %d and %d folds"
+                                 % (self.folds, p.shape[0]))
+            p.requires_grad_(True)
+
+    @classmethod
+    def from_models(cls, models: Iterable[nn.Module], folds: int
+                    ) -> "FoldStack":
+        """Stack ``folds`` MemeUniters, taken one at a time from ``models``
+        (each copied into the stack as it comes, so a generator of models
+        never holds more than one besides the stack)."""
+        params, config, n_classes, n = None, None, None, 0
+        for f, model in enumerate(models):
+            sd = model.state_dict()
+            if params is None:
+                config, n_classes = model.config, model.n_classes
+                params = {k: torch.empty((folds,) + tuple(v.shape),
+                                         dtype=v.dtype, device=v.device)
+                          for k, v in sd.items()}
+            with torch.no_grad():
+                for k, v in sd.items():
+                    params[k][f].copy_(v)
+            n = f + 1
+            del model, sd
+        if n != folds:
+            raise ValueError("%d models for %d folds" % (n, folds))
+        return cls(config, n_classes, params)
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.params.values())).device
+
+    def fold_state_dict(self, fold: int, params=None
+                        ) -> Dict[str, torch.Tensor]:
+        """Fold ``fold``'s MemeUniter ``state_dict`` (views into
+        ``params``, default the live parameters)."""
+        params = self.params if params is None else params
+        return {k: v[fold].detach() for k, v in params.items()}
+
+    # ------------------------------------------------------------ the layers
+
+    def _lin(self, x: torch.Tensor, name: str,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``x [F, ..., in]`` through fold f's linear layer ``name``: with
+        ``dtype`` the encoder's ``_linear`` (product, then bias, each
+        rounded to ``dtype``), else ``nn.Linear`` (bias in the product)."""
+        w, b = self.params[name + ".weight"], self.params[name + ".bias"]
+        x2 = x.reshape(x.shape[0], -1, x.shape[-1])
+        if dtype is None:
+            y = torch.baddbmm(b.unsqueeze(1), x2, w.transpose(1, 2))
+        else:
+            y = (torch.bmm(x2, w.to(dtype).transpose(1, 2))
+                 + b.to(dtype).unsqueeze(1))
+        return y.reshape(x.shape[:-1] + (w.shape[1],))
+
+    def _ln(self, x: torch.Tensor, name: str,
+            out_dtype: torch.dtype) -> torch.Tensor:
+        return _layer_norm(x, _fold_view(self.params[name + ".weight"],
+                                         x.dim()),
+                           _fold_view(self.params[name + ".bias"], x.dim()),
+                           self.config.layer_norm_eps, out_dtype)
+
+    def _embed(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Fold f's rows of table ``name`` ``[F, V, H]`` for ``ids``
+        ``[F, ...]``: one lookup in the flattened ``[F·V, H]`` table."""
+        table = self.params[name + ".weight"]
+        F_, V = table.shape[:2]
+        offset = (torch.arange(F_, device=ids.device) * V).reshape(
+            (F_,) + (1,) * (ids.dim() - 1))
+        return F.embedding(ids.long() + offset, table.reshape(F_ * V, -1))
+
+    def _text(self, input_ids, position_ids, gen) -> torch.Tensor:
+        p = "uniter_model.embeddings."
+        x = (self._embed(p + "word_embeddings", input_ids)
+             + self._embed(p + "position_embeddings", position_ids)
+             + self._embed(p + "token_type_embeddings",
+                           torch.zeros_like(input_ids)))
+        x = self._ln(x, p + "LayerNorm", compute_dtype(self.config))
+        return bernoulli_dropout(x, self.config.hidden_dropout_prob, gen)
+
+    def _image(self, img_feat, img_pos_feat, gen) -> torch.Tensor:
+        p = "uniter_model.img_embeddings."
+        type_emb = self._embed(
+            "uniter_model.embeddings.token_type_embeddings",
+            torch.ones(img_feat.shape[:3], dtype=torch.long,
+                       device=img_feat.device))
+        im = self._ln(self._lin(img_feat.float(), p + "img_linear"),
+                      p + "img_layer_norm", torch.float32)
+        pos = self._ln(self._lin(img_pos_feat.float(), p + "pos_linear"),
+                       p + "pos_layer_norm", torch.float32)
+        x = self._ln(im + pos + type_emb, p + "LayerNorm",
+                     compute_dtype(self.config))
+        return bernoulli_dropout(x, self.config.hidden_dropout_prob, gen)
+
+    def _layer(self, i: int, x: torch.Tensor, bias32: torch.Tensor,
+               attn_rate: float, gen: Generators) -> torch.Tensor:
+        cfg = self.config
+        p = "uniter_model.encoder.layer.%d." % i
+        p_hid = cfg.hidden_dropout_prob
+        bits8 = cfg.dropout_bits_dtype == "uint8"
+        dtype = compute_dtype(cfg)
+        F_, B, S, H = x.shape
+        q, k, v = (_split_heads(self._lin(x, p + "attention.self." + n,
+                                          dtype).reshape(F_ * B, S, H),
+                                cfg.num_attention_heads)
+                   for n in ("query", "key", "value"))
+        ctx = _merge_heads(_attention(
+            cfg, q, k, v, bias32, 1.0 / math.sqrt(cfg.head_dim), dtype,
+            attn_rate, gen, folds=F_)).reshape(F_, B, S, H)
+        attn_out = threshold_dropout(
+            self._lin(ctx, p + "attention.output.dense", dtype), p_hid, gen,
+            bits8)
+        x = self._ln(attn_out + x, p + "attention.output.LayerNorm", dtype)
+        inter = ACT2FN[cfg.hidden_act](
+            self._lin(x, p + "intermediate.dense", dtype))
+        ffn_out = threshold_dropout(self._lin(inter, p + "output.dense",
+                                              dtype), p_hid, gen, bits8)
+        return self._ln(ffn_out + x, p + "output.LayerNorm", dtype)
+
+    # -------------------------------------------------------------- forward
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                deterministic: bool = True,
+                generators: Optional[Sequence[torch.Generator]] = None
+                ) -> torch.Tensor:
+        """Logits ``[F, B, n_classes]`` of fold-stacked inputs ``[F, B,
+        ...]`` (MemeUniter's keys); ``deterministic=False`` trains with
+        dropout, fold f drawing from ``generators[f]``."""
+        cfg = self.config
+        use_dropout = (not deterministic) and (
+            cfg.attention_probs_dropout_prob > 0
+            or cfg.hidden_dropout_prob > 0)
+        if use_dropout and generators is None:
+            raise ValueError("dropout (deterministic=False) draws from one "
+                             "torch.Generator a fold; pass generators=")
+        gen = list(generators) if use_dropout else None
+        attn_rate = cfg.attention_probs_dropout_prob if use_dropout else 0.0
+        input_ids, img_feat = batch.get("input_ids"), batch.get("img_feat")
+        if input_ids is None:
+            emb = self._image(img_feat, batch["img_pos_feat"], gen)
+            mask = batch["img_mask"]
+        elif img_feat is None:
+            emb = self._text(input_ids, batch["position_ids"], gen)
+            mask = batch["txt_mask"]
+        else:
+            txt = self._text(input_ids, batch["position_ids"], gen)
+            img = self._image(img_feat, batch["img_pos_feat"], gen)
+            emb = torch.cat([txt.to(img.dtype), img], dim=2)
+            mask = torch.cat([batch["txt_mask"], batch["img_mask"]], dim=2)
+        F_, B, S = mask.shape
+        bias32 = ((1.0 - mask.float()) * NEG_INF).reshape(F_ * B, 1, 1, S)
+        x = emb.to(compute_dtype(cfg))
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i in range(cfg.num_hidden_layers):
+            if remat:
+                x = _remat(cfg, functools.partial(
+                    self._layer, i, bias32=bias32, attn_rate=attn_rate,
+                    gen=gen), x, gen)
+            else:
+                x = self._layer(i, x, bias32, attn_rate, gen)
+        pooled = torch.tanh(self._lin(x[:, :, 0].float(),
+                                      "uniter_model.pooler.dense"))
+        return self._lin(pooled, "linear")
+
+    __call__ = forward

@@ -36,6 +36,15 @@ recomputes them.
   row's max and sum of exp, and the autograd function saves them with the
   output for the backward's single launch.
 
+- ``folds=F`` (default 1) runs F folds of one model in one launch, the folds
+  in the kernel's batch axis (``[F·B, H, S, D]``, fold-major): what JAX's
+  ``vmap`` of the ``pallas_call`` over a fold axis computes, one grid a fold.
+  Per-sample seeds are the folds' ``[B]`` seeds concatenated. The pair
+  block is ``_largest_block(B·H)`` of one fold and the seeds are
+  ``F × blocked_seed_count(B, H)``, fold-major, so no block, seed or hash
+  index straddles two folds. The kernels need no change: ``seed_group`` is
+  a launch argument.
+
 ``LAUNCHES`` counts the kernel launches of each wrapper, forward and backward;
 ``ROUTE_LAUNCHES`` the same launches by (wrapper, route).
 """
@@ -137,16 +146,30 @@ def _largest_block(g: int, cap: int = 24) -> int:
     return 1
 
 
-def blocked_seed_count(batch: int, num_heads: int) -> int:
+def _fold_batch(batch: int, folds: int) -> int:
+    """The batch of one fold of a fold-stacked ``[folds·B, ...]`` input."""
+    if folds < 1 or batch % folds:
+        raise ValueError("a batch of %d does not split into %d folds"
+                         % (batch, folds))
+    return batch // folds
+
+
+def _fold_block(batch: int, num_heads: int, folds: int) -> int:
+    """Pairs a block of :func:`fused_attention_blocked`: the largest block
+    of ONE fold's ``B·H`` pairs."""
+    return _largest_block(_fold_batch(batch, folds) * num_heads)
+
+
+def blocked_seed_count(batch: int, num_heads: int, folds: int = 1) -> int:
     """Number of per-grid-step dropout seeds :func:`fused_attention_blocked`
-    consumes for a ``[batch, num_heads, ...]`` input.
+    consumes for a ``[batch, num_heads, ...]`` input of ``folds`` folds
+    (``folds × blocked_seed_count(batch // folds, num_heads)``).
 
     The single public home of the block-size policy: callers building seed
     arrays (e.g. the encoder) MUST use this rather than re-deriving from
     ``_largest_block``, so a future cap change or per-shape heuristic cannot
     desynchronize the seed array from the kernel's grid."""
-    g = batch * num_heads
-    return g // _largest_block(g)
+    return batch * num_heads // _fold_block(batch, num_heads, folds)
 
 
 # --------------------------------------------------------------------------
@@ -238,19 +261,22 @@ def _seed_arg(n: int, seeds, device) -> torch.Tensor:
 
 
 def fused_attention_plain(q, k, v, bias, scale: float,
-                          dropout_rate: float = 0.0, seeds=None):
+                          dropout_rate: float = 0.0, seeds=None,
+                          folds: int = 1):
     """Plain PyTorch version of :func:`fused_attention` (per-sample seeds)."""
     B, H = q.shape[:2]
+    _fold_batch(B, folds)
     return _attention_plain(q, k, v, bias, scale, dropout_rate,
                             _seed_arg(B, seeds, q.device), H)
 
 
 def fused_attention_blocked_plain(q, k, v, bias, scale: float,
-                                  dropout_rate: float = 0.0, seeds=None):
+                                  dropout_rate: float = 0.0, seeds=None,
+                                  folds: int = 1):
     """Plain PyTorch version of :func:`fused_attention_blocked`
-    (per-block seeds, ``_largest_block(B·H)`` pairs a block)."""
+    (per-block seeds, ``_largest_block(B·H)`` pairs of one fold a block)."""
     B, H = q.shape[:2]
-    blk = _largest_block(B * H)
+    blk = _fold_block(B, H, folds)
     return _attention_plain(q, k, v, bias, scale, dropout_rate,
                             _seed_arg(B * H // blk, seeds, q.device), blk)
 
@@ -514,14 +540,16 @@ def _apply(q, k, v, bias, scale, rate, seeds, seed_group, name):
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, scale: float,
                     dropout_rate: float = 0.0,
-                    seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seeds: Optional[torch.Tensor] = None,
+                    folds: int = 1) -> torch.Tensor:
     """dropout(softmax(q·kᵀ·scale + bias))·v, per sample; differentiable in
     q, k and v.
 
-    q/k/v: [B, H, S, D]; bias: [B, 1, 1, S] additive fp32 mask;
-    seeds: [B] int32 per-sample seeds (read iff dropout_rate > 0).
-    Returns [B, H, S, D] in q.dtype.
+    q/k/v: [B, H, S, D] (``folds`` folds of B // folds samples, fold-major);
+    bias: [B, 1, 1, S] additive fp32 mask; seeds: [B] int32 per-sample seeds
+    (read iff dropout_rate > 0). Returns [B, H, S, D] in q.dtype.
     """
+    _fold_batch(q.shape[0], folds)
     return _apply(q, k, v, bias, scale, dropout_rate, seeds, q.shape[1],
                   "fused_attention")
 
@@ -529,11 +557,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def fused_attention_blocked(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor, scale: float,
                             dropout_rate: float = 0.0,
-                            seeds: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            seeds: Optional[torch.Tensor] = None,
+                            folds: int = 1) -> torch.Tensor:
     """Pair-blocked fused attention; same signature as
     :func:`fused_attention` except ``seeds`` is per block
-    (``[blocked_seed_count(B, H)]`` int32)."""
+    (``[blocked_seed_count(B, H, folds)]`` int32, fold-major)."""
     return _apply(q, k, v, bias, scale, dropout_rate, seeds,
-                  _largest_block(q.shape[0] * q.shape[1]),
+                  _fold_block(q.shape[0], q.shape[1], folds),
                   "fused_attention_blocked")

@@ -4,8 +4,8 @@ Counterpart of ``meme_challenge_tpu/train/checkpoint.py``. ``ModelSaver``
 writes ``torch.save({'model_state_dict': sd})`` (reference utils/save.py:53-64)
 — the format the JAX package's ``save_reference_checkpoint`` writes
 (convert.py:516-524), so a checkpoint moves between the two packages and the
-reference. Flax msgpack, the JAX ``ModelSaver``'s own format, cannot be read
-without flax.
+reference. Flax msgpack, the JAX ``ModelSaver``'s own format, is read by
+``models/convert.py`` (``load_pretrained``) without flax.
 
 ``save_train_state`` / ``load_train_state`` keep the full training state
 for a mid-training resume (parameters, optimizer moments, step count,
@@ -18,6 +18,7 @@ import dataclasses
 import json
 import os
 import subprocess
+from typing import Mapping, Union
 
 import torch
 from torch import nn
@@ -34,8 +35,11 @@ class ModelSaver:
     def __init__(self, output_path: str):
         self.output_path = output_path
 
-    def save(self, model: nn.Module) -> None:
-        sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    def save(self, model: Union[nn.Module, Mapping[str, torch.Tensor]]
+             ) -> None:
+        """Write ``model``'s weights: a module, or its ``state_dict``."""
+        sd = model.state_dict() if isinstance(model, nn.Module) else model
+        sd = {k: v.detach().cpu() for k, v in sd.items()}
         os.makedirs(os.path.dirname(os.path.abspath(self.output_path)),
                     exist_ok=True)
         tmp = self.output_path + ".tmp"
@@ -50,17 +54,17 @@ class ModelSaver:
         return model
 
 
-def _to(tree, device):
+def tree_to(tree, device):
     """A state tree (dicts of tensors and ints) on ``device``."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: tree_to(v, device) for k, v in tree.items()}
     return tree.detach().to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def save_train_state(path: str, state, epoch: int) -> None:
     """Full-state checkpoint of a ``steps.TrainState`` for resume."""
-    payload = {"params": _to(state.model.state_dict(), "cpu"),
-               "opt_state": _to(state.opt_state, "cpu"),
+    payload = {"params": tree_to(state.model.state_dict(), "cpu"),
+               "opt_state": tree_to(state.opt_state, "cpu"),
                "step": int(state.step), "epoch": int(epoch)}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
@@ -75,7 +79,7 @@ def load_train_state(path: str, state):
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["params"], strict=True)
     device = next(state.model.parameters()).device
-    state.opt_state = _to(payload["opt_state"], device)
+    state.opt_state = tree_to(payload["opt_state"], device)
     state.step = int(payload["step"])
     return state, int(payload["epoch"])
 

@@ -8,8 +8,8 @@ checkpoints and CSVs get ``_fold_i`` names, the mean validation metrics are
 reported, and the per-fold prediction CSVs feed the ensemble search, which
 runs on the trainer's device.
 
-The fold-parallel path of the JAX package (folds trained side by side across
-a device mesh) is not ported (ROADMAP.md); folds run one after another.
+Here folds run one after another; ``parallel/crossval_parallel.py`` trains
+them all at once (``--mesh_shape 1 --mesh_axes fold``).
 """
 from __future__ import annotations
 

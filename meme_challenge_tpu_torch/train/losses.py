@@ -5,6 +5,8 @@ train_template.py:64-69 + 95-126): ``bce`` / ``bce_logits`` (+``pos_wt``
 positive-class reweighting, torch ``BCEWithLogitsLoss(pos_weight=...)``
 semantics) / ``ce``. All losses are masked means over the valid samples of a
 (possibly padded) static batch, with the denominator ``max(Σmask, 1)``.
+Leading axes (a fold axis, an accumulation axis) are kept: labels and mask
+``[..., B]`` give one loss per row, ``[...]``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 def _masked_mean(per_sample: torch.Tensor,
                  sample_mask: torch.Tensor) -> torch.Tensor:
     m = sample_mask.float()
-    return (per_sample * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return (per_sample * m).sum(-1) / torch.clamp_min(m.sum(-1), 1.0)
 
 
 def bce_logits_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -26,7 +28,7 @@ def bce_logits_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Weighted binary cross-entropy on logits,
     ``-[w·y·log σ(x) + (1−y)·log(1−σ(x))]``, in the stable log-sigmoid form.
     Returns (masked mean loss, probabilities)."""
-    x = logits.reshape(-1).float()
+    x = logits.reshape(labels.shape).float()
     y = labels.float()
     per = -(pos_weight * y * F.logsigmoid(x) + (1.0 - y) * F.logsigmoid(-x))
     return _masked_mean(per, sample_mask), torch.sigmoid(x)
@@ -44,7 +46,7 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Cross-entropy over n_classes logits. Returns (loss, softmax probs)."""
     logits = logits.float()
     logp = F.log_softmax(logits, dim=-1)
-    per = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    per = -logp.gather(-1, labels.long()[..., None])[..., 0]
     return _masked_mean(per, sample_mask), torch.softmax(logits, dim=-1)
 
 

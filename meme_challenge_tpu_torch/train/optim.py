@@ -26,6 +26,12 @@ utils/optim_utils.py). The chain, in order:
 
 Updates use the ``torch._foreach_*`` ops: one launch per operation over all
 parameters rather than one per parameter.
+
+With ``folds=F`` every parameter carries a leading fold axis ``[F, ...]``
+(the fold-parallel trainer's stacked state) and the chain is the optax
+chain under JAX's ``vmap`` over folds: the global-norm clip takes one norm
+a fold and scales each fold by its own trigger. Everything else is
+elementwise, and the folds step in lockstep, so one count serves them all.
 """
 from __future__ import annotations
 
@@ -80,6 +86,11 @@ def _dtype(d) -> Optional[torch.dtype]:
     return getattr(torch, d) if isinstance(d, str) else d
 
 
+def _fold_scalar(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-fold scalars ``[F]`` shaped to broadcast against ``x [F, ...]``."""
+    return v.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
 def _add(xs, ys):
     return torch._foreach_add(xs, ys)
 
@@ -98,7 +109,7 @@ class Optimizer:
                  weight_decay: float = 0.0,
                  max_grad_norm: Optional[float] = None, eps: float = 1e-8,
                  update_scales: Optional[Dict[str, object]] = None,
-                 mu_dtype=None, nu_dtype=None):
+                 mu_dtype=None, nu_dtype=None, folds: int = 0):
         if name not in ("adam", "adamax", "adamw", "sgd"):
             raise ValueError("invalid optimizer")
         self.name, self.lr, self.schedule = name, lr, schedule_fn
@@ -107,6 +118,7 @@ class Optimizer:
             weight_decay, max_grad_norm, eps)
         self.update_scales = update_scales
         self.mu_dtype, self.nu_dtype = _dtype(mu_dtype), _dtype(nu_dtype)
+        self.folds = folds
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         def zeros(dtype):
@@ -126,13 +138,26 @@ class Optimizer:
 
     def _clip(self, g):
         """optax.clip_by_global_norm: g unchanged below ``max_grad_norm``,
-        else ``g / norm · max_norm``; no host sync."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        else ``g / norm · max_norm``; no host sync. With folds, one norm and
+        one trigger a fold."""
+        if not self.folds:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(g)))
+        else:
+            # every fold's slice of every tensor in one foreach call
+            norms = torch._foreach_norm([x[f] for x in g
+                                         for f in range(self.folds)])
+            norm = torch.linalg.vector_norm(
+                torch.stack(norms).reshape(len(g), self.folds), dim=0)
         trigger = norm < self.max_grad_norm
-        one = torch.ones((), dtype=norm.dtype, device=norm.device)
+        one = torch.ones_like(norm)
         div = torch.where(trigger, one, norm)
         mul = torch.where(trigger, one, one * self.max_grad_norm)
-        return _mul(torch._foreach_div(g, div), mul)
+        if not self.folds:
+            return _mul(torch._foreach_div(g, div), mul)
+        div = [_fold_scalar(div, x) for x in g]
+        mul = [_fold_scalar(mul, x) for x in g]
+        return torch._foreach_mul(torch._foreach_div(g, div), mul)
 
     def _decay(self, u, p, names):
         if not self.weight_decay:

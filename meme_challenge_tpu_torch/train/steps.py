@@ -23,6 +23,11 @@ program:
 - :class:`EvalPipeline` keeps each batch's probabilities on the device and
   fetches them once per pass, or oldest-first beyond a window. CUDA runs a
   stream's work in order, so the JAX package's chain token is not needed.
+- :func:`make_fold_train_step` is the same step over F folds at once (a
+  ``models.uniter.FoldStack``, batches ``[F, accum, B, ...]``): the body of
+  the JAX ``_train_step_body`` under ``vmap`` over folds, as the JAX
+  fold-parallel trainer runs it. :func:`fold_gather` is its
+  device-resident gather through each fold's local→global row table.
 """
 from __future__ import annotations
 
@@ -113,6 +118,90 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                 probs.append(pr.detach())
             losses, probs = torch.stack(losses), torch.stack(probs)
         # a parameter the batch did not reach has a zero gradient, as in JAX
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params.values()]
+        if accum_steps > 1 and not fuse_accum:
+            grads = torch._foreach_div(grads, float(accum_steps))
+        optimizer.step(params, dict(zip(params, grads)), state.opt_state)
+        for p in params.values():
+            p.grad = None
+        state.step += 1
+        return state, {"loss": losses, "probs": probs}
+
+    return train_step
+
+
+def fold_gather(data, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """A fold-stacked micro-batch assembled ON DEVICE: ``data`` is
+    ``(shared, table)``, the folds' union corpus ``{key: [N, ...]}`` and
+    each fold's local→global row table ``[F, N_max]``; ``batch["indices"]``
+    ``[F, ...]`` are rows of each fold's own dataset. Other keys of
+    ``batch`` overlay the gathered arrays."""
+    shared, table = data
+    idx = batch["indices"].long()
+    rows = torch.gather(table, 1, idx.reshape(idx.shape[0], -1)).reshape(-1)
+    out = {k: v.index_select(0, rows).reshape(tuple(idx.shape)
+                                               + tuple(v.shape[1:]))
+           for k, v in shared.items()}
+    for k, v in batch.items():
+        if k != "indices":
+            out[k] = v
+    return out
+
+
+def make_fold_train_step(model, loss_fn: Callable, optimizer,
+                         accum_steps: int = 1, gather_data: bool = False,
+                         fuse_accum: bool = False):
+    """One optimizer step of every fold of a ``FoldStack``:
+    ``train_step(state, batch, generators, data=None)`` → (state,
+    {"loss": [F, accum], "probs": [F, accum, B(, C)]}).
+
+    ``batch`` holds device tensors ``[F, accum, B, ...]`` (with
+    ``gather_data`` the fold-local ``indices``, gathered by
+    :func:`fold_gather` from ``data``); fold f's dropout draws from
+    ``generators[f]``. Per micro-batch one forward and backward of all
+    folds (the folds' losses summed: no parameter is shared, so each fold
+    gets its own gradient), the gradients divided by ``accum``; or with
+    ``fuse_accum`` one forward and backward over ``[F, accum·B]``, each
+    fold's loss the mean of its per-micro masked means, as
+    :func:`make_train_step`. ``loss_fn`` keeps the leading axes
+    (``losses.py``). The optimizer takes ``folds=F`` (per-fold clipping)."""
+    params = model.params
+    folds = model.folds
+
+    def forward(batch, generators, data):
+        if gather_data:
+            batch = fold_gather(data, batch)
+        return model(batch, deterministic=False,
+                     generators=generators), batch
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generators, data=None):
+        for p in params.values():
+            p.grad = None
+        if fuse_accum and accum_steps > 1:
+            flat = {k: v.reshape((folds, -1) + tuple(v.shape[3:]))
+                    for k, v in batch.items()}
+            logits, flat = forward(flat, generators, data)
+            logits = logits.reshape((folds, accum_steps, -1)
+                                    + tuple(logits.shape[2:]))
+            losses, probs = loss_fn(
+                logits, flat["labels"].reshape(folds, accum_steps, -1),
+                flat["sample_mask"].reshape(folds, accum_steps, -1))
+            losses.mean(dim=1).sum().backward()
+            losses, probs = losses.detach(), probs.detach()
+        else:
+            losses, probs = [], []
+            for a in range(accum_steps):
+                micro = {k: v[:, a] for k, v in batch.items()}
+                logits, micro = forward(micro, generators, data)
+                loss, pr = loss_fn(logits, micro["labels"],
+                                   micro["sample_mask"])
+                loss.sum().backward()  # sums into .grad in micro order
+                losses.append(loss.detach())
+                probs.append(pr.detach())
+            losses, probs = torch.stack(losses, 1), torch.stack(probs, 1)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params.values()]
         if accum_steps > 1 and not fuse_accum:

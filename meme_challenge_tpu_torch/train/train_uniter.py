@@ -21,11 +21,19 @@ train/dev_seen split. Each fine-tune uses dropout and early stopping,
 reloads the best checkpoint and writes the validation CSV, a CSV per test
 set and the metrics JSON; ``--max_epoch 0`` serves
 ``model_path/model_save_name`` as it is. ``--pretrained_model_file`` reads
-reference torch dumps (fine-tuned MemeUniter or UNITER pretraining); flax
-msgpack files raise. ``--steps_per_dispatch`` and ``--dispatch_unroll`` run
-their steps as a plain loop with the numbers of single steps; ``--slow_rng``
-is accepted and does nothing (a JAX PRNG switch); ``--mesh_shape`` is
-ignored with a warning (the fold-parallel path is not ported).
+reference torch dumps and the JAX package's flax-msgpack ``ModelSaver``
+dumps (fine-tuned MemeUniter or UNITER pretraining). ``--steps_per_dispatch``
+and ``--dispatch_unroll`` run their steps as a plain loop with the numbers
+of single steps; ``--slow_rng`` is accepted and does nothing (a JAX PRNG
+switch).
+
+``--mesh_shape 1 --mesh_axes fold`` with ``--num_folds`` other than 0
+trains all folds at once as one fold-stacked model on the one card
+(``parallel/crossval_parallel.py``), with the same artifacts and a resume
+file ``crossval_resume.pt`` under ``model_path`` (unless
+``--no_model_checkpoints``); a mesh of more than one device raises
+(``parallel/mesh.py``). With ``--num_folds 0`` a fold mesh falls through to
+the sequential single-split run with a warning, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -47,6 +55,10 @@ from meme_challenge_tpu_torch.data.meme_dataset import (
 from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
 from meme_challenge_tpu_torch.models.convert import load_pretrained
 from meme_challenge_tpu_torch.models.uniter import MemeUniter, init_meme_uniter
+from meme_challenge_tpu_torch.parallel.crossval_parallel import (
+    train_crossval_fold_parallel,
+)
+from meme_challenge_tpu_torch.parallel.mesh import make_mesh
 from meme_challenge_tpu_torch.train.crossval_driver import train_crossval
 from meme_challenge_tpu_torch.train.trainer import Trainer
 
@@ -184,14 +196,34 @@ def main(argv=None):
         if not args.precise_attention:
             uniter_config = uniter_config.replace(
                 attention_score_dtype="bfloat16", dropout_bits_dtype="uint8")
-    if config.mesh_shape:
-        logger.warning("--mesh_shape is ignored: the port runs folds one "
-                       "after another on one device")
+    # --mesh_shape 1 --mesh_axes fold → all folds train at once on the card
+    # (parallel/crossval_parallel.py); num_folds == 0 has no fold axis and
+    # falls through to the sequential single-split driver
+    fold_parallel = (bool(config.mesh_shape) and "fold" in config.mesh_axes
+                     and config.num_folds != 0)
+    if fold_parallel:
+        make_mesh(config.mesh_shape, config.mesh_axes)  # raises if > 1 device
 
     os.makedirs(config.model_path, exist_ok=True)
     set_seed(config.seed)
     loader_funcs, test_loaders, trainer_factory = build_entry(
         config, uniter_config, args.vocab_file, device)
+    if fold_parallel:
+        def init_model_fn(seed):
+            return init_meme_uniter_params(uniter_config, config, device,
+                                           torch_generator(seed, device))
+
+        return train_crossval_fold_parallel(
+            config, init_model_fn, loader_funcs, test_loaders=test_loaders,
+            num_folds=config.num_folds, dev_size=config.crossval_dev_size,
+            use_dev_set=config.crossval_use_dev,
+            resume_path=(os.path.join(config.model_path,
+                                      "crossval_resume.pt")
+                         if not config.no_model_checkpoints else None),
+            device=device)
+    if config.mesh_shape and "fold" in config.mesh_axes:
+        logger.warning("--mesh_shape given but num_folds=0 (no crossval): "
+                       "falling back to the sequential single-split driver")
     return train_crossval(
         trainer_factory, config, loader_funcs, test_loaders,
         num_folds=config.num_folds, dev_size=config.crossval_dev_size,

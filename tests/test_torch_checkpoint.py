@@ -115,8 +115,88 @@ def test_model_saver_roundtrip_and_wrapper(tmp_path):
 
 
 def test_flax_msgpack_checkpoint_raises_clearly(tmp_path):
+    """The JAX ModelSaver's flax-msgpack dump of a fine-tuned MemeUniter
+    loads (logits within 1e-5 of JAX's); a file that is neither torch nor
+    msgpack still raises clearly."""
     path = str(tmp_path / "flax.ckpt")
     JaxModelSaver(path).save(flax_params())
     assert not C.is_torch_checkpoint(path)
+    model = _fresh()
+    assert C.load_pretrained(model, path) == "finetuned"
+    batch = make_batch(seed=4)
+    np.testing.assert_allclose(torch_logits(model, batch),
+                               jax_logits(flax_params(), batch), atol=1e-5,
+                               rtol=0)
+    bad = str(tmp_path / "bad.ckpt")
+    with open(bad, "wb") as f:
+        f.write(b"\xc1 not a checkpoint")
     with pytest.raises(ValueError, match="not a torch checkpoint"):
-        C.load_pretrained(_fresh(), path)
+        C.load_pretrained(_fresh(), bad)
+
+
+def test_flax_msgpack_trunk_dump_keeps_the_head(tmp_path):
+    """A trunk-only flax dump (a pretraining ``ModelSaver`` file: no
+    classifier) loads the trunk, as JAX ``_try_load_flax_params`` reads
+    it, and keeps the model's own head."""
+    from flax import serialization
+
+    params = flax_params()
+    path = str(tmp_path / "trunk.ckpt")
+    with open(path, "wb") as f:
+        f.write(serialization.to_bytes({"params": {
+            "uniter": params["uniter"], "mlm_head": {"bias": np.ones(3)}}}))
+    model = _fresh(3)
+    head = {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith("linear.")}
+    assert C.load_pretrained(model, path) == "pretrain"
+    sd = model.state_dict()
+    assert all(torch.equal(sd[k], v) for k, v in head.items())
+    full = C.meme_uniter_state_from_jax(params)
+    for k, v in full.items():
+        if not k.startswith("linear."):
+            assert torch.equal(sd[k], v), k
+
+
+def test_flax_msgpack_decoder_matches_flax(tmp_path, monkeypatch):
+    """The plain-python decoder against ``flax.serialization``: every
+    msgpack type flax writes, its three extension types (ndarray, complex,
+    numpy scalar, bfloat16 arrays among them) and chunked leaves."""
+    import jax.numpy as jnp
+    from flax import serialization
+
+    rng = np.random.RandomState(0)
+    tree = {"params": {"w": rng.randn(3, 5).astype(np.float32),
+                       "i": np.arange(7, dtype=np.int64),
+                       "h": rng.randn(4).astype(np.float16),
+                       "b16": jnp.asarray(rng.randn(6), jnp.bfloat16),
+                       "s": np.float32(2.5), "n": np.int32(-9)},
+            "ints": [0, 127, 128, 255, 65535, 2 ** 32, -1, -33, -129,
+                     -40000, -2 ** 40],
+            "floats": [1.5, -0.0], "none": None, "flags": [True, False],
+            "text": "x" * 40, "z": 2 - 3j,
+            "big": rng.randn(300).astype(np.float32)}
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 256)
+    path = str(tmp_path / "tree.msgpack")
+    with open(path, "wb") as f:
+        f.write(serialization.to_bytes(tree))
+    ours = C.read_flax_msgpack(path)
+    with open(path, "rb") as f:
+        ref = serialization.msgpack_restore(f.read())
+    flat_ours, flat_ref = dict(_flatten(ours)), dict(_flatten(ref))
+    assert set(flat_ours) == set(flat_ref)
+    for k, v in flat_ref.items():
+        got = flat_ours[k]
+        if v is None or isinstance(v, (str, bool, complex)):
+            assert got == v and type(got) is type(v), k
+        else:
+            np.testing.assert_array_equal(np.asarray(got, np.float64),
+                                          np.asarray(v, np.float64),
+                                          err_msg=str(k))
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (k,))
+    else:
+        yield prefix, tree

@@ -49,7 +49,10 @@ def test_importing_every_port_module_loads_no_jax():
             "meme_challenge_tpu_torch.train.crossval_driver",
             "meme_challenge_tpu_torch.data.crossval_splits",
             "meme_challenge_tpu_torch.ops.device_metrics",
-            "meme_challenge_tpu_torch.ensemble.ensemble"} <= set(mods)
+            "meme_challenge_tpu_torch.ensemble.ensemble",
+            "meme_challenge_tpu_torch.parallel.mesh",
+            "meme_challenge_tpu_torch.parallel.fold_parallel",
+            "meme_challenge_tpu_torch.parallel.crossval_parallel"} <= set(mods)
     # modules an interpreter start-up hook may preload are not the port's
     code = (
         "import importlib, json, sys\n"
@@ -99,3 +102,21 @@ def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_parallel_modules_import_no_jax_and_default_to_cuda():
+    """parallel/*: no import statement of jax or of the JAX package, and
+    the fold-parallel driver runs on CUDA unless asked for the CPU."""
+    from meme_challenge_tpu_torch.parallel import crossval_parallel
+
+    parallel = os.path.join(PORT, "parallel")
+    files = sorted(f for f in os.listdir(parallel) if f.endswith(".py"))
+    assert {"mesh.py", "fold_parallel.py", "crossval_parallel.py"} <= set(
+        files)
+    for f in files:
+        test_no_forbidden_import_statement(
+            os.path.relpath(os.path.join(parallel, f), ROOT))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        crossval_parallel.train_crossval_fold_parallel(None, None, {})

@@ -130,13 +130,17 @@ def test_port_cli_matches_jax_inference(synth, tmp_path, attention, resident):
     ({"pretrained_model_file": "flax.msgpack"}, "msgpack"),
 ])
 def test_port_cli_later_slices_raise(synth, tmp_path, flag, match):
-    """Reading the JAX package's flax msgpack checkpoints is queued
-    (ROADMAP.md): the CLI refuses such a file rather than misread it."""
+    """The CLI reads the JAX package's flax-msgpack dumps (models/convert.py
+    holds the weights to JAX's), and refuses a file that is neither a torch
+    checkpoint nor msgpack rather than misread it."""
     ModelSaver(str(tmp_path / "flax.msgpack")).save(flax_params())
-    flag = {k: str(tmp_path / v) for k, v in flag.items()}
+    _run_port(synth, str(tmp_path / "p"), {}, tmp_path, max_epoch=1,
+              **{k: str(tmp_path / v) for k, v in flag.items()})
+    bad = tmp_path / "bad"
+    bad.write_bytes(b"\xc1 neither torch nor msgpack")
     with pytest.raises(ValueError, match=match):
-        _run_port(synth, str(tmp_path / "p"), {}, tmp_path,
-                  max_epoch=1, **flag)
+        _run_port(synth, str(tmp_path / "q"), {}, tmp_path, max_epoch=1,
+                  **{k: str(bad) for k in flag})
 
 
 def test_port_eval_model_matches_jax_trainer(synth):
