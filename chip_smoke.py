@@ -80,6 +80,24 @@ Phases, each of which makes the script exit non-zero if it fails:
    magnitude); (d) one optimizer step at F 1, 3 and 15 (remat "dots",
    fp32): wall and host-issue ms, launches (torch.profiler), memes/s and
    peak memory. Every number beside the card's name and power limit.
+10. Pretraining (``UniterForPretraining`` at full UNITER-base width on the
+   168-meme corpus, train + dev_seen): (a) one micro-batch of 4 a task
+   (mlm, itm with OT 0.1, mrfr, mrc, mrc-kl), fp32, dropout off, card
+   against CPU: the loss within 1e-4 relative, every gradient within 1e-4
+   of its largest magnitude, 12 forward + 12 backward launches on
+   ``mma_tf32x3``; IPOT alone at [16, 60, 100] with padding, card against
+   CPU within 1e-4 relative, its device ms and launches; (b)
+   ``pretrain_uniter`` through its CLI (mlm:2,itm,mrfr,mrc-kl, OT 0.1,
+   16 × 2, 2 epochs): the per-sample kernel in fp32, and the pair-blocked
+   kernel with --compute_bf16 --device_resident_data --fuse_accum: exact
+   launch counts (12 + 12 a forward), finite losses, the dump and resume
+   file, train memes/s by task; (c) that fp32 command in a process of its
+   own, killed after its epoch-1 resume file, then a fresh process: it
+   resumes at step 6 and ends within 1e-6 of (b)'s weights; the resume
+   file's size and write time; (d) the fine-tune CLI from (b)'s dump
+   loads it in "pretrain" mode and ends with a finite AUROC; (e) one
+   optimizer step a task (16 × 2, Adam, dropout, fp32) measured as 9d.
+   The launches of (b) and (d) count in the kernels' record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -579,6 +597,9 @@ class PassLog:
         import logging
 
         self.passes, self.epochs, self.folds = [], [], []
+        # pretraining: memes/s by task and (GB, s) of each resume file a
+        # run wrote; the fine-tune CLI's load modes
+        self.pretrain_rates, self.pretrain_saves, self.loads = [], [], []
         # fold-parallel: (steps, micro-batches a step) per epoch, the
         # stacked batches of each pass, and (GB, s) of each resume file
         self.fold_steps, self.fold_passes, self.fold_saves = [], [], []
@@ -603,18 +624,30 @@ class PassLog:
                     parent.fold_passes.append(int(record.args[1]))
                 elif msg.startswith("[fold-parallel] resume file"):
                     parent.fold_saves.append(record.args[1:3])
+                elif msg.startswith("pretrain train memes/s by task"):
+                    args = record.args
+                    parent.pretrain_rates.append(
+                        args if isinstance(args, dict) else args[0])
+                elif msg.startswith("pretrain resume file"):
+                    parent.pretrain_saves.append(record.args[1:3])
+                elif msg.startswith("Loaded ") and msg.endswith(" dump)"):
+                    parent.loads.append(record.args[1])
 
         self.handler = Handler(level=logging.INFO)
         for name in ("meme_challenge_tpu_torch.train",
                      "meme_challenge_tpu_torch.crossval",
-                     "meme_challenge_tpu_torch.fold_parallel"):
+                     "meme_challenge_tpu_torch.fold_parallel",
+                     "meme_challenge_tpu_torch.pretrain",
+                     "meme_challenge_tpu_torch.train_uniter"):
             logger = logging.getLogger(name)
             logger.setLevel(logging.INFO)
             logger.addHandler(self.handler)
 
     def clear(self):
         for records in (self.passes, self.epochs, self.folds,
-                        self.fold_steps, self.fold_passes, self.fold_saves):
+                        self.fold_steps, self.fold_passes, self.fold_saves,
+                        self.pretrain_rates, self.pretrain_saves,
+                        self.loads):
             records.clear()
 
 
@@ -1662,7 +1695,8 @@ def fold_grad_check(torch, synth: dict) -> None:
         fail("fold-stacked gradients disagree with the per-fold models'")
 
 
-def _measure_step(torch, one, memes: int, tag: str, base: int) -> None:
+def _measure_step(torch, one, memes: int, tag: str, base: int,
+                  setting: str = "Adam, remat dots, fp32") -> None:
     """Wall and host-issue ms (medians of 3 after one warm-up step), the
     peak of allocated memory above ``base``, and one profiled step's
     kernel time, idle share, launches and host time by operator."""
@@ -1709,10 +1743,11 @@ def _measure_step(torch, one, memes: int, tag: str, base: int) -> None:
     except Exception as e:  # informational: a missing trace fails nothing
         prof_line = "profiler unavailable (%s)" % e
     log(on_card(
-        "%s (%d memes, Adam, remat dots, fp32): wall %.1f ms, host issue "
+        "%s (%d memes, %s): wall %.1f ms, host issue "
         "%.1f ms, %.1f memes/s; %s; memory: weights + moments %.2f GiB "
         "between steps, peak %.2f GiB of %.1f"
-        % (tag, memes, wall_ms, issue_ms, memes / wall_ms * 1e3, prof_line,
+        % (tag, memes, setting, wall_ms, issue_ms, memes / wall_ms * 1e3,
+           prof_line,
            static, peak,
            torch.cuda.get_device_properties(0).total_memory / 2 ** 30)))
 
@@ -1787,6 +1822,395 @@ def fold_step_phase(torch, synth: dict) -> None:
         del stack, opt, state, step, batch
 
 
+# ------------------------------------------------------------ pretraining
+
+PRETRAIN_TASKS = ("mlm", "itm", "mrfr", "mrc", "mrc-kl")
+PRETRAIN_OT = 0.1
+# the CLI runs of phase 10b: (kernel, dtype, pallas_blocked, extra flags)
+PRETRAIN_RUNS = (
+    ("fused_attention", "float32", False, []),
+    ("fused_attention_blocked", "bfloat16", True,
+     ["--compute_bf16", "--device_resident_data", "--fuse_accum"]))
+
+
+def _pretrain_corpus(synth: dict):
+    """The pretraining corpus of the synthetic dataset: train + dev_seen,
+    128 + 40 = 168 memes, at the main path's widths."""
+    from meme_challenge_tpu_torch.data.pretrain import pretrain_corpus
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+
+    tok = BertTokenizer(synth["vocab"])
+    return pretrain_corpus(synth["root"], synth["feature_dir"], tok,
+                           max_txt_len=60, max_bb=100, img_dim=2048), tok
+
+
+def _task_batches(ds, tok, batch_size: int, accum: int = 1) -> dict:
+    """One host batch ``[accum, B, ...]`` a task from the CLI's own task
+    loaders (host mode), drawn from seed 0."""
+    import random
+
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.config import TrainConfig
+    from meme_challenge_tpu_torch.train.pretrain_uniter import (
+        build_task_loaders,
+    )
+    from meme_challenge_tpu_torch.train.steps import stack_for_accum
+
+    random.seed(0)
+    np.random.seed(0)
+    loaders = build_task_loaders(
+        TrainConfig(batch_size=batch_size), ds, tok,
+        {t: 1 for t in PRETRAIN_TASKS}, 0.15, 0.5, 0.15)
+    out = {}
+    for task, loader in loaders.items():
+        it = iter(loader)
+        out[task] = stack_for_accum([next(it) for _ in range(accum)])
+    return out
+
+
+def _count_launches(torch, fn) -> int:
+    """Kernel launches of one call of ``fn`` (torch.profiler); -1 where the
+    profiler gives no trace."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if "LaunchKernel" in e.key)
+    except Exception as e:  # informational: a missing trace fails nothing
+        log("profiler unavailable (%s)" % e)
+        return -1
+
+
+def pretrain_heads_check(torch, synth: dict, A) -> None:
+    """Phase 10a: UniterForPretraining at full width from seed 5, fp32,
+    dropout off, the per-sample kernel: one micro-batch of 4 a task (ITM
+    with OT 0.1) on the card against the CPU (plain versions): the reduced
+    loss within GRAD_TOL relative, every gradient within GRAD_TOL of its
+    largest magnitude (floored at a thousandth of the model's largest, as
+    grad_check), and 12 forward + 12 backward launches a micro-batch on
+    ``mma_tf32x3``. Then IPOT alone at [16, 60, 100] with padding, card
+    against CPU, its device ms and launches."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.models.ot import optimal_transport_dist
+    from meme_challenge_tpu_torch.train.pretrain_driver import _task_loss
+    from meme_challenge_tpu_torch.train.pretrain_init import (
+        init_pretrain_model,
+    )
+    from meme_challenge_tpu_torch.train.steps import to_device
+
+    ds, tok = _pretrain_corpus(synth)
+    batches = _task_batches(ds, tok, 4)
+    cfg = UniterConfig(use_pallas_attention=True, hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    layers = cfg.num_hidden_layers
+    cpu = init_pretrain_model(cfg, 1601, "cpu", torch_generator(5, "cpu"))
+    card = init_pretrain_model(cfg, 1601, "cuda", torch_generator(5, "cuda"))
+    card.load_state_dict(cpu.state_dict())
+    log("pretrain heads: UniterForPretraining (%.1f M parameters), corpus "
+        "%d memes" % (sum(p.numel() for p in cpu.parameters()) / 1e6,
+                      len(ds)))
+    for task in PRETRAIN_TASKS:
+        host = {k: v[0] for k, v in batches[task].items()}
+        out = {}
+        for device, model in (("cuda", card), ("cpu", cpu)):
+            reset_launches(A)
+            loss = _task_loss(model, to_device(host, device, keys=host),
+                              task, None, PRETRAIN_OT)
+            loss.backward()
+            out[device] = (loss.item(), {
+                n: p.grad.float().cpu() for n, p in model.named_parameters()
+                if p.grad is not None})
+            model.zero_grad(set_to_none=True)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                by_route = check_route_counts(
+                    A, "pretrain heads " + task, "float32",
+                    ("fused_attention", "fused_attention_bwd"))
+                n_fwd = A.LAUNCHES["fused_attention"]
+                n_bwd = A.LAUNCHES["fused_attention_bwd"]
+                if n_fwd != layers or n_bwd != layers:
+                    fail("pretrain heads %s: %d forward and %d backward "
+                         "launches, expected %d each" % (task, n_fwd, n_bwd,
+                                                        layers))
+        (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+        if set(g_card) != set(g_cpu):
+            fail("pretrain heads %s: gradients reach other parameters" % task)
+        top = max(float(g.abs().max()) for g in g_cpu.values())
+        worst, worst_name = 0.0, ""
+        for n, g in g_cpu.items():
+            scale = max(float(g.abs().max()), 1e-3 * top)
+            rel = float((g_card[n] - g).abs().max()) / scale
+            if rel > worst:
+                worst, worst_name = rel, n
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        log(on_card(
+            "pretrain heads %s: micro-batch of 4, fp32, card vs CPU: loss "
+            "%.6f vs %.6f (relative %.3g); %d gradients, worst %.3g of the "
+            "largest magnitude (%s; tol %g); launches %d + %d by route %s"
+            % (task, l_card, l_cpu, loss_rel, len(g_cpu), worst, worst_name,
+               GRAD_TOL, n_fwd, n_bwd, by_route)))
+        if not (loss_rel <= GRAD_TOL and worst <= GRAD_TOL
+                and math.isfinite(l_card)):
+            fail("pretrain heads %s: the card disagrees with the CPU" % task)
+    del cpu, card
+
+    # IPOT alone at the main path's [B 16, 60 text, 100 regions]
+    rng = np.random.RandomState(0)
+    txt = rng.randn(16, 60, 768).astype(np.float32)
+    img = rng.randn(16, 100, 768).astype(np.float32)
+    txt_pad = np.arange(60)[None] >= rng.randint(8, 61, 16)[:, None]
+    img_pad = np.arange(100)[None] >= rng.randint(10, 101, 16)[:, None]
+    dist = {}
+    for device in ("cuda", "cpu"):
+        args = [torch.from_numpy(a).to(device)
+                for a in (txt, img, txt_pad, img_pad)]
+        dist[device] = optimal_transport_dist(*args).cpu()
+    rel = float(((dist["cuda"] - dist["cpu"]).abs()
+                 / dist["cpu"].abs()).max())
+    args = [torch.from_numpy(a).cuda() for a in (txt, img, txt_pad, img_pad)]
+    ms, host_ms = device_ms(lambda: optimal_transport_dist(*args), iters=5)
+    launches = _count_launches(torch, lambda: optimal_transport_dist(*args))
+    log(on_card(
+        "pretrain IPOT [16, 60, 100] with padding, 50 iterations: card vs "
+        "CPU distance, worst relative %.3g (tol %g); device %.3f ms, host "
+        "issue %.3f ms, %d kernel launches a call"
+        % (rel, GRAD_TOL, ms, host_ms, launches)))
+    if not (rel <= GRAD_TOL and bool(torch.isfinite(dist["cuda"]).all())):
+        fail("pretrain IPOT: the card disagrees with the CPU")
+
+
+def _pretrain_argv(synth: dict, run_dir: str, cfg_path: str) -> list:
+    return ["--data_path", synth["root"],
+            "--feature_path", synth["feature_dir"],
+            "--vocab_file", synth["vocab"], "--model_path", run_dir,
+            "--model_save_name", "pretrain.ckpt", "--uniter_config", cfg_path,
+            "--tasks", "mlm:2,itm,mrfr,mrc-kl",
+            "--ot_weight", str(PRETRAIN_OT), "--batch_size", "16",
+            "--gradient_accumulation", str(TRAIN_ACCUM), "--max_epoch", "2",
+            "--seed", "42"]
+
+
+def pretrain_cli_phase(torch, work: str, synth: dict, passlog, A) -> tuple:
+    """Phase 10b: ``pretrain_uniter`` at full width (uniter-base, dropout
+    0.1 / 0.1), tasks mlm:2,itm,mrfr,mrc-kl, OT 0.1, 16 x 2, 2 epochs: the
+    per-sample kernel in fp32, then the pair-blocked kernel with
+    --compute_bf16 --device_resident_data --fuse_accum. Checks finite losses
+    for every task stepped, the dump and resume file, and 12 forward + 12
+    backward launches a micro-batch (a fused group: one), all on the main
+    path's body; prints train memes/s by task. Returns the launches of each
+    (kernel, dtype) and the fp32 run's directory."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.train import pretrain_uniter
+
+    ds, _ = _pretrain_corpus(synth)
+    layers = UniterConfig().num_hidden_layers
+    steps = 2 * _ceil(len(ds), 16 * TRAIN_ACCUM)
+    launches, fp32_dir = {}, None
+    for name, dtype, blocked, flags in PRETRAIN_RUNS:
+        tag = "%s %s%s" % (name, dtype, " " + " ".join(flags) if flags
+                           else "")
+        run_dir = os.path.join(work, "pretrain_%s_%s" % (name, dtype))
+        os.makedirs(run_dir)
+        cfg_path = os.path.join(run_dir, "uniter.json")
+        with open(cfg_path, "w") as f:
+            json.dump(UniterConfig(use_pallas_attention=True,
+                                   pallas_blocked=blocked).to_dict(), f)
+        passlog.clear()
+        reset_launches(A)
+        t0 = time.time()
+        losses = pretrain_uniter.main(_pretrain_argv(synth, run_dir,
+                                                     cfg_path) + flags)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        bwd = name + "_bwd"
+        by_route = check_route_counts(A, "pretrain " + tag, dtype,
+                                      (name, bwd))
+        counts = dict(A.LAUNCHES)
+        launches[(name, dtype)], launches[(bwd, dtype)] = (counts[name],
+                                                           counts[bwd])
+        micro = steps * (1 if "--fuse_accum" in flags else TRAIN_ACCUM)
+        want = {name: layers * micro, bwd: layers * micro}
+        rates = passlog.pretrain_rates[-1] if passlog.pretrain_rates else {}
+        log(on_card(
+            "pretrain %s: CLI %.1f s, %d steps; launches forward %d, "
+            "backward %d (expected %d each = %d layers x %d forwards); by "
+            "route %s; final-epoch losses %s; train memes/s by task %s; "
+            "resume files (GB, s) %s"
+            % (tag, wall, steps, counts[name], counts[bwd], want[name],
+               layers, micro, by_route,
+               {t: round(v, 4) for t, v in sorted(losses.items())},
+               {t: round(v, 1) for t, v in sorted(rates.items())},
+               passlog.pretrain_saves)))
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            fail("pretrain %s: launch counts %s, expected %s"
+                 % (tag, counts, want))
+        if not losses or not all(math.isfinite(v) for v in losses.values()) \
+                or set(rates) != set(losses):
+            fail("pretrain %s: losses %s, rates %s" % (tag, losses, rates))
+        for f in ("pretrain.ckpt", "pretrain.ckpt.resume.pt",
+                  os.path.join("log", "hps.json")):
+            if not os.path.isfile(os.path.join(run_dir, f)):
+                fail("pretrain %s: missing %s" % (tag, f))
+        if fp32_dir is None:
+            fp32_dir = run_dir
+    return launches, fp32_dir
+
+
+def pretrain_resume_phase(torch, work: str, synth: dict,
+                          fp32_dir: str) -> None:
+    """Phase 10c: the fp32 command of 10b in a process of its own, killed
+    (SIGKILL) as soon as its first resume file (epoch 1 of 2) is on disk,
+    then a fresh process with the same command: it must resume at step 6
+    and end with the uninterrupted 10b run's weights (max abs difference
+    at most RESUME_TOL). The first process runs the full 2-epoch command
+    because the LR schedule spans steps_per_epoch x max_epoch: a 1-epoch
+    command would train another schedule."""
+    import signal
+
+    from meme_challenge_tpu_torch.models.convert import load_torch_state_dict
+
+    run_dir = os.path.join(work, "pretrain_resume")
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(fp32_dir, "uniter.json")
+    argv = ([sys.executable, "-m",
+             "meme_challenge_tpu_torch.train.pretrain_uniter"]
+            + _pretrain_argv(synth, run_dir, cfg_path))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    resume = os.path.join(run_dir, "pretrain.ckpt.resume.pt")
+    logs = []
+    for i in range(2):
+        with open(os.path.join(run_dir, "process_%d.log" % i), "w") as out:
+            t0 = time.time()
+            proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+            try:
+                if i == 0:
+                    while proc.poll() is None and not os.path.isfile(resume):
+                        time.sleep(0.02)
+                    proc.send_signal(signal.SIGKILL)
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            wall = time.time() - t0
+        with open(out.name) as f:
+            text = f.read()
+        logs.append(text)
+        saves = re.findall(r"pretrain resume file \S+: ([\d.]+) GB written "
+                           r"in ([\d.]+) s", text)
+        log(on_card("pretrain resume: process %d %s after %.1f s (exit %s); "
+                    "resume files written (GB, s): %s"
+                    % (i, "killed" if i == 0 else "ended", wall,
+                       proc.returncode, saves)))
+        if i == 1 and proc.returncode != 0:
+            fail("pretrain resume: the fresh process failed:\n" + text[-3000:])
+    if "resuming pretraining from" not in logs[1] or "at step 6" not in \
+            logs[1]:
+        fail("pretrain resume: the fresh process did not resume at step 6:\n"
+             + logs[1][-3000:])
+    got = load_torch_state_dict(os.path.join(run_dir, "pretrain.ckpt"))
+    want = load_torch_state_dict(os.path.join(fp32_dir, "pretrain.ckpt"))
+    worst = max(float((got[k] - want[k]).abs().max()) for k in want)
+    log(on_card("pretrain resume: killed after epoch 1 and resumed in a "
+                "fresh process vs the uninterrupted run: %d tensors, max abs "
+                "difference %.3g (tol %g)" % (len(want), worst, RESUME_TOL)))
+    if set(got) != set(want) or worst > RESUME_TOL:
+        fail("pretrain resume: the resumed weights differ")
+
+
+RESUME_TOL = 1e-6
+
+
+def pretrain_handoff_phase(torch, work: str, synth: dict, passlog, A,
+                           fp32_dir: str) -> dict:
+    """Phase 10d: the port's fine-tune CLI (--num_folds 0, 1 epoch, fp32,
+    per-sample kernel) from the 10b fp32 pretraining dump: it must load it
+    in "pretrain" mode and end with a finite AUROC. Returns its launches."""
+    from meme_challenge_tpu_torch.train import train_uniter
+
+    run_dir = os.path.join(work, "pretrain_handoff")
+    os.makedirs(run_dir)
+    argv = ["--data_path", synth["root"],
+            "--feature_path", synth["feature_dir"],
+            "--vocab_file", synth["vocab"], "--model_path", run_dir,
+            "--model_save_name", "finetune.ckpt",
+            "--uniter_config", os.path.join(fp32_dir, "uniter.json"),
+            "--max_epoch", "1", "--num_folds", "0", "--batch_size", "16",
+            "--gradient_accumulation", str(TRAIN_ACCUM),
+            "--confounder_repeat", "3", "--pos_wt", "1.8", "--lr", "3e-5",
+            "--warmup_steps", "2",
+            "--pretrained_model_file", os.path.join(fp32_dir,
+                                                    "pretrain.ckpt")]
+    passlog.clear()
+    reset_launches(A)
+    t0 = time.time()
+    train_uniter.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check_route_counts(A, "pretrain handoff", "float32",
+                       ("fused_attention", "fused_attention_bwd"))
+    metrics = check_outputs(run_dir, "finetune.ckpt", synth)
+    auc = metrics["dev"]["aucroc"]
+    log(on_card("pretrain handoff: fine-tune from the pretraining dump, CLI "
+                "%.1f s; load modes %s; dev AUROC %.4f; launches %d + %d"
+                % (wall, passlog.loads, auc, A.LAUNCHES["fused_attention"],
+                   A.LAUNCHES["fused_attention_bwd"])))
+    if passlog.loads != ["pretrain"] or not math.isfinite(auc):
+        fail("pretrain handoff: load modes %s, AUROC %s"
+             % (passlog.loads, auc))
+    return {("fused_attention", "float32"): A.LAUNCHES["fused_attention"],
+            ("fused_attention_bwd", "float32"):
+                A.LAUNCHES["fused_attention_bwd"]}
+
+
+def pretrain_step_phase(torch, synth: dict) -> None:
+    """Phase 10e: one optimizer step a task (16 x 2, Adam with bf16
+    moments, clipping, dropout on, fp32, per-sample kernel, ITM with OT
+    0.1) through ``PretrainTrainer.step``: wall and host-issue ms, kernel
+    ms, idle share, launches, memes/s and peak memory (``_measure_step``)."""
+    from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.train.pretrain_driver import (
+        PretrainTrainer,
+    )
+    from meme_challenge_tpu_torch.train.pretrain_init import (
+        init_pretrain_model,
+    )
+    from meme_challenge_tpu_torch.train.steps import to_device
+
+    ds, tok = _pretrain_corpus(synth)
+    batches = _task_batches(ds, tok, 16, TRAIN_ACCUM)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = init_pretrain_model(UniterConfig(use_pallas_attention=True), 1601,
+                                "cuda", torch_generator(0, "cuda"))
+    trainer = PretrainTrainer(
+        TrainConfig(lr=3e-5, gradient_accumulation=TRAIN_ACCUM,
+                    batch_size=16), model, None, steps_per_epoch=100,
+        ot_weight=PRETRAIN_OT)
+    for task in PRETRAIN_TASKS:
+        batch = to_device(batches[task], "cuda", keys=batches[task])
+        _measure_step(
+            torch, lambda: trainer.step(task, batch, dropout_generator(
+                42, trainer.state.step, "cuda")), 16 * TRAIN_ACCUM,
+            "pretrain step %s" % task, base,
+            "Adam, fp32, OT %g" % PRETRAIN_OT if task == "itm"
+            else "Adam, fp32")
+    del model, trainer
+
+
 def main(argv) -> None:
     if not os.path.isdir(PACKAGE):
         fail("meme_challenge_tpu_torch/ not found beside chip_smoke.py: run "
@@ -1858,6 +2282,14 @@ def main(argv) -> None:
                               work, synth, passlog, cv_epochs)
         timed("fold-parallel grad", fold_grad_check, torch, synth)
         timed("fold-parallel steps", fold_step_phase, torch, synth)
+        timed("pretrain heads", pretrain_heads_check, torch, synth, A)
+        pre_launches, fp32_dir = timed("pretrain CLI", pretrain_cli_phase,
+                                       torch, work, synth, passlog, A)
+        timed("pretrain resume", pretrain_resume_phase, torch, work, synth,
+              fp32_dir)
+        handoff = timed("pretrain handoff", pretrain_handoff_phase, torch,
+                        work, synth, passlog, A, fp32_dir)
+        timed("pretrain steps", pretrain_step_phase, torch, synth)
     timed("ensemble", ensemble_scale_phase, torch)
     # the recipe's kernel and dtype also ran the crossval and fold-parallel
     # phases: their launches count with the train phase's
@@ -1868,6 +2300,13 @@ def main(argv) -> None:
             % (key[0], key[1], launches[key], cv_launches[key],
                fold_launches[key], total))
         launches[key] = total
+    # phase 10's CLI runs (10b, 10d) count too; 10a compares with the plain
+    # versions, 10c runs in processes of its own, 10e measures
+    for phase in (pre_launches, handoff):
+        for key, n in phase.items():
+            log("launches %s[%s]: + pretraining phase %d = %d"
+                % (key[0], key[1], n, launches[key] + n))
+            launches[key] += n
 
     # "route" is the kind of kernel (hand-written CUDA C++); "body" is the
     # CUDA body the route rule picked at the main path's shape, the one the

@@ -13,7 +13,12 @@ README.md:25-33):
 MemeUniter parameter tree given as numpy arrays: it splits the stacked
 ``qkv_kernel [L, H, 3H]`` into three matrices and transposes flax ``[in, out]``
 kernels into torch ``[out, in]`` weights; :func:`fold_stack_state_from_jax`
-does so for F folds at once, into a ``FoldStack``'s ``[F, ...]`` state.
+does so for F folds at once, into a ``FoldStack``'s ``[F, ...]`` state, and
+:func:`pretrain_state_from_jax` for a ``UniterForPretraining`` (trunk under
+``uniter.``, the heads under the reference's names).
+:func:`pretrain_state_from_checkpoint` reads reference-layout torch
+pretraining dumps, and :func:`load_pretrain_weights` warm-starts
+pretraining from either format.
 This module is written anew rather than copied: the JAX package's converter
 imports its flax-side config.
 
@@ -35,6 +40,18 @@ import torch
 
 TRUNK_PREFIX = "uniter_model."
 HEAD_PREFIX = "linear."
+# UniterForPretraining: the trunk's prefix and the heads' keys (reference
+# model/pretrain.py; the names JAX pretrain_params_from_torch reads)
+PRETRAIN_TRUNK_PREFIX = "uniter."
+PRETRAIN_HEAD_KEYS = tuple(
+    ["cls.predictions.transform.%s.%s" % (m, w)
+     for m in ("dense", "LayerNorm") for w in ("weight", "bias")]
+    + ["cls.predictions.bias", "feat_regress.bias", "itm_output.weight",
+       "itm_output.bias"]
+    + ["feat_regress.net.%d.%s" % (i, w) for i in (0, 2)
+       for w in ("weight", "bias")]
+    + ["region_classifier.net.%d.%s" % (i, w) for i in (0, 2, 3)
+       for w in ("weight", "bias")])
 
 
 def is_torch_checkpoint(path: str) -> bool:
@@ -148,6 +165,41 @@ def load_pretrained(model: torch.nn.Module, path: str) -> str:
     return "pretrain"
 
 
+def load_pretrain_weights(model: torch.nn.Module, path: str) -> str:
+    """Warm-start a ``UniterForPretraining`` from ``path`` (JAX
+    pretrain_uniter.py:191-211): a flax-msgpack pretraining dump restores
+    the trunk and every head it holds, a fine-tuned MemeUniter dump (flax
+    or torch) the trunk only, and a torch pretraining dump (the port's own,
+    or the reference's) the trunk and the heads it carries
+    (:func:`pretrain_state_from_checkpoint`; the JAX package reads only the
+    trunk of a torch file). Heads the file lacks keep their weights; every
+    trunk key must be present. Returns ``"pretrain"`` or ``"finetuned"``."""
+    if is_torch_checkpoint(path):
+        sd = load_torch_state_dict(path)
+        kind = ("finetuned" if any(k.startswith(TRUNK_PREFIX) for k in sd)
+                else "pretrain")
+        state = pretrain_state_from_checkpoint(sd)
+    else:
+        tree = read_flax_msgpack(path)
+        if not isinstance(tree, dict):
+            raise ValueError("%s is not a torch checkpoint nor a flax "
+                             "parameter tree" % path)
+        params = tree.get("params", tree)
+        kind = "finetuned" if "classifier" in params else "pretrain"
+        state = pretrain_state_from_jax(
+            {"uniter": params["uniter"]} if kind == "finetuned" else params)
+    current = model.state_dict()
+    trunk = [k for k in current if k.startswith(PRETRAIN_TRUNK_PREFIX)]
+    missing = [k for k in trunk if k not in state]
+    unexpected = [k for k in state if k not in current]
+    if missing or unexpected:
+        raise KeyError("%s does not fit UniterForPretraining: missing %s, "
+                       "unexpected %s" % (path, missing, unexpected))
+    current.update(state)
+    model.load_state_dict(current, strict=True)
+    return kind
+
+
 def _t(w) -> np.ndarray:
     """flax kernel [in, out] → torch Linear weight [out, in]."""
     return np.array(np.asarray(w, dtype=np.float32).T, order="C")
@@ -223,6 +275,66 @@ def meme_uniter_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         out[HEAD_PREFIX + "weight"] = _t(params["classifier"]["kernel"])
         out[HEAD_PREFIX + "bias"] = _a(params["classifier"]["bias"])
     return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def pretrain_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``UniterForPretraining`` tree (numpy leaves; the full head tree
+    or the trunk alone) → the port's ``UniterForPretraining`` keys (CPU
+    tensors): the trunk under ``uniter.`` and each head the tree holds."""
+    out = uniter_trunk_state_from_jax(params["uniter"],
+                                      prefix=PRETRAIN_TRUNK_PREFIX)
+    if "mlm_head" in params:
+        h, p = params["mlm_head"], "cls.predictions."
+        out[p + "transform.dense.weight"] = _t(h["transform_dense"]["kernel"])
+        out[p + "transform.dense.bias"] = _a(h["transform_dense"]["bias"])
+        out[p + "transform.LayerNorm.weight"] = _a(h["transform_ln_scale"])
+        out[p + "transform.LayerNorm.bias"] = _a(h["transform_ln_bias"])
+        out[p + "bias"] = _a(h["bias"])
+    for name in ("feat_regress", "region_classifier"):
+        if name not in params:
+            continue
+        h = params[name]
+        out[name + ".net.0.weight"] = _t(h["net_dense"]["kernel"])
+        out[name + ".net.0.bias"] = _a(h["net_dense"]["bias"])
+        out[name + ".net.2.weight"] = _a(h["net_ln_scale"])
+        out[name + ".net.2.bias"] = _a(h["net_ln_bias"])
+        if "net_out" in h:
+            out[name + ".net.3.weight"] = _t(h["net_out"]["kernel"])
+            out[name + ".net.3.bias"] = _a(h["net_out"]["bias"])
+        if "bias" in h:
+            out[name + ".bias"] = _a(h["bias"])
+    if "itm_output" in params:
+        out["itm_output.weight"] = _t(params["itm_output"]["kernel"])
+        out["itm_output.bias"] = _a(params["itm_output"]["bias"])
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def pretrain_state_from_checkpoint(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint → the ``UniterForPretraining`` keys it holds:
+
+    - a reference pretraining dump (``bert.`` stripped, an optional
+      ``uniter.`` trunk prefix; JAX ``pretrain_params_from_torch``): the
+      trunk and the heads it carries (the tied decoder copies,
+      ``cls.predictions.decoder.*`` and ``feat_regress.weight``, dropped);
+      without ``img_embeddings.mask_embedding`` that table is zeros, as the
+      JAX converter makes it;
+    - a fine-tuned MemeUniter dump (``uniter_model.``): the trunk only."""
+    sd = rename_reference_keys(sd, strip_prefixes=("bert.",))
+    if any(k.startswith(TRUNK_PREFIX) for k in sd):
+        trunk = {k: v for k, v in sd.items() if k.startswith(TRUNK_PREFIX)}
+        heads = {}
+    else:
+        trunk = pretrain_trunk_state(sd)
+        heads = {k: torch.as_tensor(v) for k, v in sd.items()
+                 if k in PRETRAIN_HEAD_KEYS}
+    out = {PRETRAIN_TRUNK_PREFIX + k[len(TRUNK_PREFIX):]: torch.as_tensor(v)
+           for k, v in trunk.items()}
+    mask_key = PRETRAIN_TRUNK_PREFIX + "img_embeddings.mask_embedding.weight"
+    if mask_key not in out:
+        img = out[PRETRAIN_TRUNK_PREFIX + "img_embeddings.img_linear.weight"]
+        out[mask_key] = torch.zeros((2, img.shape[1]), dtype=img.dtype)
+    out.update(heads)
+    return out
 
 
 def fold_stack_state_from_jax(params: Union[Mapping, Sequence[Mapping]]

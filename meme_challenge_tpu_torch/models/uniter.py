@@ -36,6 +36,10 @@ what ``meme_uniter_params_to_torch`` writes (the ``uniter_model.`` trunk, the
   all folds with F in the kernel's batch axis. Fold f's dropout draws from
   its own generator, in the order and shapes a single MemeUniter draws, so
   fold f of the stack equals the single model given that generator.
+- :class:`UniterForPretraining` (JAX models/uniter.py:527-716) puts the
+  MLM, MRFR, ITM and MRC heads on the trunk under the reference's
+  pretraining keys; the MLM and MRFR decoders are the word embedding table
+  and ``img_linear``'s weight (tied).
 """
 from __future__ import annotations
 
@@ -577,16 +581,205 @@ class MemeUniter(nn.Module):
         return self.linear(self.uniter_model.pool(seq))
 
 
+def _head_mlp(net: nn.ModuleDict, hidden: torch.Tensor) -> torch.Tensor:
+    """``net["0"]`` → erf-GELU → ``net["2"]`` (fp32 LayerNorm), on the
+    hidden states in fp32: the shared front of the MRFR and MRC heads
+    (reference ``nn.Sequential(Linear, GELU, LayerNorm)``)."""
+    h = erf_gelu(net["0"](hidden.float()))
+    return net["2"](h, torch.float32)
+
+
+class RegionFeatureRegression(nn.Module):
+    """MRFR head: Linear→GELU→LN, decoded with the *shared* ``img_linear``
+    weight of the image embeddings (reference model/pretrain.py:19-33;
+    JAX models/uniter.py:527-548). Keys ``net.0``, ``net.2``, ``bias``."""
+
+    def __init__(self, config: UniterConfig):
+        super().__init__()
+        H = config.hidden_size
+        self.net = nn.ModuleDict({"0": nn.Linear(H, H),
+                                  "2": LayerNorm(H, config.layer_norm_eps)})
+        self.bias = nn.Parameter(torch.zeros(config.img_dim))
+
+    def forward(self, hidden: torch.Tensor,
+                img_linear_weight: torch.Tensor) -> torch.Tensor:
+        # img_linear.weight is [H, img_dim]: H → img_dim is h @ W (the
+        # reference's F.linear(h, W.t(), bias)); its gradient reaches the
+        # image embeddings' parameter
+        return torch.matmul(_head_mlp(self.net, hidden),
+                            img_linear_weight) + self.bias
+
+
+class RegionClassification(nn.Module):
+    """MRC head: Linear→GELU→LN→Linear(label_dim) (reference
+    model/pretrain.py:36-47). Keys ``net.0``, ``net.2``, ``net.3``."""
+
+    def __init__(self, config: UniterConfig, label_dim: int):
+        super().__init__()
+        H = config.hidden_size
+        self.net = nn.ModuleDict({"0": nn.Linear(H, H),
+                                  "2": LayerNorm(H, config.layer_norm_eps),
+                                  "3": nn.Linear(H, label_dim)})
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.net["3"](_head_mlp(self.net, hidden))
+
+
+class _MLMPredictions(nn.Module):
+    def __init__(self, config: UniterConfig):
+        super().__init__()
+        self.transform = _DenseLN(config.hidden_size, config.hidden_size,
+                                  config.layer_norm_eps)
+        self.bias = nn.Parameter(torch.zeros(config.vocab_size))
+
+
+class MLMHead(nn.Module):
+    """Linear→act→LN → decode with the *word embedding table* + bias
+    (reference BertOnlyMLMHead, model/layer.py:205-222). Keys
+    ``predictions.transform.{dense,LayerNorm}``, ``predictions.bias``."""
+
+    def __init__(self, config: UniterConfig):
+        super().__init__()
+        self.act = ACT2FN[config.hidden_act]
+        self.predictions = _MLMPredictions(config)
+
+    def forward(self, hidden: torch.Tensor,
+                word_embedding: torch.Tensor) -> torch.Tensor:
+        p = self.predictions
+        h = self.act(p.transform.dense(hidden.float()))
+        h = p.transform.LayerNorm(h, torch.float32)
+        return F.linear(h, word_embedding) + p.bias
+
+
+class UniterForPretraining(nn.Module):
+    """The four pretraining heads over a shared UNITER trunk.
+
+    Counterpart of JAX ``UniterForPretraining`` (models/uniter.py:594-716;
+    reference model/pretrain.py:50-233) with the MLM, MRFR, ITM and MRC(-kl)
+    tasks, under the reference's torch keys: the trunk under ``uniter.``,
+    ``cls.predictions.*``, ``feat_regress.*``, ``region_classifier.*`` and
+    ``itm_output``. The MLM decoder is the word embedding table and the MRFR
+    decoder the image embeddings' ``img_linear`` weight (tied: no key of
+    their own). Each task returns per-position (loss, mask) pairs computed
+    densely over the static sequence; the driver reduces them. The heads
+    compute in fp32 whatever the compute dtype."""
+
+    def __init__(self, config: UniterConfig, img_label_dim: int = 1601):
+        super().__init__()
+        self.config = config
+        self.img_label_dim = img_label_dim
+        self.uniter = UniterModel(config)
+        self.cls = MLMHead(config)
+        self.feat_regress = RegionFeatureRegression(config)
+        self.region_classifier = RegionClassification(config, img_label_dim)
+        self.itm_output = nn.Linear(config.hidden_size, 2)
+
+    def _encode(self, batch: Dict[str, torch.Tensor], img_masks=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        seq, _ = self.uniter(
+            input_ids=batch["input_ids"],
+            position_ids=batch["position_ids"],
+            img_feat=batch["img_feat"],
+            img_pos_feat=batch["img_pos_feat"],
+            txt_mask=batch["txt_mask"],
+            img_mask=batch["img_mask"],
+            img_masks=img_masks,
+            deterministic=deterministic,
+            generator=generator,
+        )
+        return seq
+
+    def forward(self, batch: Dict[str, torch.Tensor], task: str,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Dispatch on ``task`` (reference pretrain.py:65-105)."""
+        if task == "mlm":
+            return self.forward_mlm(batch, deterministic, generator)
+        if task == "mrfr":
+            return self.forward_mrfr(batch, deterministic, generator)
+        if task == "itm":
+            return self.forward_itm(batch, deterministic, generator)
+        if task.startswith("mrc"):
+            return self.forward_mrc(batch, task, deterministic, generator)
+        raise ValueError("invalid task %r" % task)
+
+    def forward_mlm(self, batch, deterministic=True, generator=None):
+        """Per-token CE over masked text positions (``txt_labels`` −1 is
+        unmasked) and the mask (reference pretrain.py:107-127)."""
+        seq = self._encode(batch, deterministic=deterministic,
+                           generator=generator)
+        T = batch["input_ids"].shape[1]
+        logits = self.cls(seq[:, :T],
+                          self.uniter.embeddings.word_embeddings.weight)
+        labels = batch["txt_labels"].long()
+        mask = labels != -1
+        safe = torch.where(mask, labels, 0)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        return nll * mask, mask
+
+    def forward_mrfr(self, batch, deterministic=True, generator=None):
+        """Per-region masked squared error (reference pretrain.py:135-154)."""
+        seq = self._encode(batch, img_masks=batch["img_masks"],
+                           deterministic=deterministic, generator=generator)
+        T = batch["input_ids"].shape[1]
+        pred = self.feat_regress(
+            seq[:, T:], self.uniter.img_embeddings.img_linear.weight)
+        mask = batch["img_masks"].float()
+        err = torch.square(pred - batch["feat_targets"].float())
+        return err * mask[..., None], batch["img_masks"]
+
+    def forward_itm(self, batch, deterministic=True, generator=None):
+        """ITM scores [B, 2] (reference pretrain.py:156-203)."""
+        return self.forward_itm_with_seq(batch, deterministic, generator)[0]
+
+    def forward_itm_with_seq(self, batch, deterministic=True,
+                             generator=None):
+        """ITM scores and the sequence output of the same encoder pass, for
+        the IPOT alignment term."""
+        seq = self._encode(batch, deterministic=deterministic,
+                           generator=generator)
+        return self.itm_output(self.uniter.pool(seq)), seq
+
+    def forward_mrc(self, batch, task, deterministic=True, generator=None):
+        """Per-region CE (``mrc``) or KL (``mrc-kl``) to the ``label_dim``
+        label targets (reference pretrain.py:205-233)."""
+        seq = self._encode(batch, img_masks=batch["img_masks"],
+                           deterministic=deterministic, generator=generator)
+        T = batch["input_ids"].shape[1]
+        logits = self.region_classifier(seq[:, T:]).float()
+        mask = batch["img_masks"].float()
+        label_targets = batch["label_targets"].float()
+        logp = torch.log_softmax(logits, dim=-1)
+        if "kl" in task:
+            kl = torch.where(
+                label_targets > 0,
+                label_targets * (torch.log(torch.clamp_min(label_targets,
+                                                           1e-12)) - logp),
+                0.0)
+            return kl * mask[..., None], batch["img_masks"]
+        # the background class is never the target (reference
+        # pretrain.py:228-230); argmax takes the first of equal maxima, as
+        # jnp.argmax does, so an all-zero padding row picks class 1 (masked)
+        hard = torch.argmax(label_targets[..., 1:], dim=-1) + 1
+        nll = -torch.gather(logp, -1, hard[..., None])[..., 0]
+        return nll * mask, batch["img_masks"]
+
+
 def init_weights(module: nn.Module, generator: torch.Generator,
                  initializer_range: float) -> None:
     """The JAX package's initializers: normal(initializer_range) for every
     matrix and embedding table, zeros for biases, ones for LayerNorm scales.
     Draws from ``generator``, on the parameters' device."""
+    ln_scales = {id(m.weight) for m in module.modules()
+                 if isinstance(m, LayerNorm)}
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
-            elif "LayerNorm" in name or "layer_norm" in name:
+            elif id(p) in ln_scales:
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, initializer_range, generator=generator)

@@ -44,13 +44,18 @@ import torch
 _F = np.float32
 
 _NO_DECAY_SUFFIXES = ("bias", "LayerNorm.weight", "img_layer_norm.weight",
-                      "pos_layer_norm.weight")
+                      "pos_layer_norm.weight",
+                      # the LayerNorm scales of the pretraining heads
+                      # (JAX ``net_ln_scale``; the reference's net.2)
+                      "feat_regress.net.2.weight",
+                      "region_classifier.net.2.weight")
 
 
 def no_decay_mask(names) -> Dict[str, bool]:
-    """True = apply weight decay. Every ``*bias``, every ``LayerNorm.weight``
-    and the image and position LayerNorm weights are excluded (reference
-    optim_utils.py:16; the JAX package's ``*bias`` / ``*ln_scale`` names);
+    """True = apply weight decay. Every ``*bias``, every ``LayerNorm.weight``,
+    the image and position LayerNorm weights and the pretraining heads'
+    LayerNorm weights are excluded (reference optim_utils.py:16; the JAX
+    package's ``*bias`` / ``*ln_scale`` names);
     ``mask_embedding`` and every matrix and embedding table decay."""
     return {n: not n.endswith(_NO_DECAY_SUFFIXES) for n in names}
 

@@ -108,7 +108,8 @@ def init_meme_uniter_params(uniter_config: UniterConfig,
         full_path = (path if os.path.isfile(path)
                      else os.path.join(train_config.model_path, path))
         logger.info("Loading pretrained UNITER weights from %s", full_path)
-        load_pretrained(model, full_path)
+        kind = load_pretrained(model, full_path)
+        logger.info("Loaded %s (%s dump)", full_path, kind)
     return model
 
 

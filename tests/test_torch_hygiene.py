@@ -52,7 +52,16 @@ def test_importing_every_port_module_loads_no_jax():
             "meme_challenge_tpu_torch.ensemble.ensemble",
             "meme_challenge_tpu_torch.parallel.mesh",
             "meme_challenge_tpu_torch.parallel.fold_parallel",
-            "meme_challenge_tpu_torch.parallel.crossval_parallel"} <= set(mods)
+            "meme_challenge_tpu_torch.parallel.crossval_parallel",
+            "meme_challenge_tpu_torch.data.pretrain",
+            "meme_challenge_tpu_torch.models.ot",
+            "meme_challenge_tpu_torch.train.pretrain_init",
+            "meme_challenge_tpu_torch.train.pretrain_driver",
+            "meme_challenge_tpu_torch.train.pretrain_uniter",
+            "meme_challenge_tpu_torch.tools.prep_memotion",
+            "meme_challenge_tpu_torch.tools.misclassification",
+            "meme_challenge_tpu_torch.tools.convert_feature_export"} <= set(
+                mods)
     # modules an interpreter start-up hook may preload are not the port's
     code = (
         "import importlib, json, sys\n"
@@ -120,3 +129,14 @@ def test_parallel_modules_import_no_jax_and_default_to_cuda():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         crossval_parallel.train_crossval_fold_parallel(None, None, {})
+
+
+def test_pretrain_cli_defaults_to_cuda_and_raises_without_card():
+    """The pretraining CLI runs on CUDA unless asked for the CPU; without a
+    card it raises before it reads any data."""
+    from meme_challenge_tpu_torch.train import pretrain_uniter
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        pretrain_uniter.main(["--vocab_file", "unused.txt"])
