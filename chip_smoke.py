@@ -98,6 +98,27 @@ Phases, each of which makes the script exit non-zero if it fails:
    loads it in "pretrain" mode and ends with a finite AUROC; (e) one
    optimizer step a task (16 × 2, Adam, dropout, fp32) measured as 9d.
    The launches of (b) and (d) count in the kernels' record.
+11. Text-only and Oscar models at their published widths (every
+   ``MODEL_DICT`` entry: bert, bert_large, roberta, roberta_large,
+   roberta_mnli, albert, albert_large, electra; Oscar from
+   configs/oscar-base.json with the fused kernels): (a) 2 memes of 60
+   tokens with padding, fp32, dropout off, random weights from a seed:
+   logits card vs CPU within 1e-4 relative, and for bert, albert and Oscar
+   the loss and every gradient within 1e-4 of the gradient's largest
+   magnitude; Oscar through the kernels on the card (12 + 12 launches on
+   ``mma_tf32x3``) and their plain versions on the CPU; the text models
+   launch no fused-attention kernel (their attention is the plain branch,
+   as in JAX); (b) one optimizer step of each entry at batch 32 (AdamW,
+   fp32), measured as 9d; (c) the four CLIs: train_pure_text bert with
+   --num_layers_freeze 4 --lr_head 1e-4 (2 epochs; layers 0-3 of the best
+   checkpoint bit-equal to their initial weights, the head moved),
+   train_pure_text albert --compute_bf16 --device_resident_data,
+   train_hatespeech bert (3 classes), train_object_text bert with a
+   threshold range and swaps (1 epoch each; zero fused-attention
+   launches), train_oscar fp32 per-sample (2 epochs) and bf16 pair-blocked
+   --device_resident_data (1 epoch) with exact launch counts on the dtype's
+   tensor-core body; every run's checkpoint, CSVs, metrics JSON and train
+   memes/s. The Oscar CLI runs' launches count in the kernels' record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -972,6 +993,23 @@ def train_phase(torch, work: str, synth: dict, passlog) -> dict:
 GRAD_TOL = 1e-4
 
 
+def grad_worst(g_card: dict, g_cpu: dict) -> tuple:
+    """(worst, parameter): the largest |card − CPU| of any gradient over
+    that gradient's largest magnitude on the CPU, floored at a thousandth of
+    the model's largest gradient (a gradient that is zero up to rounding,
+    the key bias: softmax ignores a shift of a whole score row)."""
+    if set(g_card) != set(g_cpu):
+        fail("gradients reach other parameters on the card and the CPU")
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for n, g in g_cpu.items():
+        scale = max(float(g.abs().max()), 1e-3 * top)
+        rel = float((g_card[n] - g).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, n
+    return worst, worst_name
+
+
 def grad_check(torch, synth: dict) -> None:
     """One micro-batch of 16 (the last sample masked out), fp32, dropout
     off, the same weights: the bce_logits loss (pos_wt 1.8) and every
@@ -1012,15 +1050,7 @@ def grad_check(torch, synth: dict) -> None:
                                      for n, p in model.named_parameters()
                                      if p.grad is not None})
     (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
-    if set(g_card) != set(g_cpu):
-        fail("gradients reach other parameters on the card and the CPU")
-    top = max(float(g.abs().max()) for g in g_cpu.values())
-    worst, worst_name = 0.0, ""
-    for n, g in g_cpu.items():
-        scale = max(float(g.abs().max()), 1e-3 * top)
-        rel = float((g_card[n] - g).abs().max()) / scale
-        if rel > worst:
-            worst, worst_name = rel, n
+    worst, worst_name = grad_worst(g_card, g_cpu)
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     log("grad: one fp32 micro-batch of 16, dropout off, card vs CPU: loss "
         "%.6f vs %.6f (relative %.3g); %d parameter gradients, worst %.3g of "
@@ -2211,6 +2241,416 @@ def pretrain_step_phase(torch, synth: dict) -> None:
     del model, trainer
 
 
+# ----------------------------------------------------- text-only and Oscar
+
+TEXT_MODELS = ("bert", "bert_large", "roberta", "roberta_large",
+               "roberta_mnli", "albert", "albert_large", "electra")
+TEXT_BATCH = 32  # the text CLIs' batch (PURE_TEXT_DEFAULTS)
+# the card-vs-CPU batch of phase 11a: the CPU runs every full-width entry
+PARITY_BATCH = 2
+
+
+def _text_dataset(synth: dict, split: str = "train"):
+    """Text-only memes of the synthetic dataset at 60 tokens (padded)."""
+    from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+
+    return MemeDataset(synth[split], tokenizer=BertTokenizer(synth["vocab"]),
+                       text_only=True, max_txt_len=60)
+
+
+def _oscar_config_file(work: str, name: str, **fields) -> str:
+    """configs/oscar-base.json (12 layers, hidden 768, img_dim 2054) with
+    ``fields`` added, written under ``work``."""
+    with open(os.path.join(ROOT, "configs", "oscar-base.json")) as f:
+        cfg = json.load(f)
+    cfg.update(fields)
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _oscar_batch(synth: dict, n: int) -> dict:
+    """n train memes with the host's 2054-d Oscar features (2048 ⊕ 6)."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+
+    ds = MemeDataset(synth["train"], feature_dir=synth["feature_dir"],
+                     tokenizer=BertTokenizer(synth["vocab"]), max_txt_len=60,
+                     max_bb=100, img_dim=2048)
+    b = ds.batch(list(range(n)))
+    b["img_feat"] = np.concatenate([b["img_feat"],
+                                    b["img_pos_feat"][..., :6]], axis=-1)
+    del b["img_pos_feat"]
+    return b
+
+
+def _card_vs_cpu(torch, tag: str, card, batch: dict, loss_fn, grads: bool
+                 ) -> None:
+    """One model's fp32 logits (dropout off) on the card against a copy of
+    it on the CPU, relative to the CPU's largest logit; with ``grads`` the
+    loss and every gradient as ``grad_check`` holds them."""
+    import copy
+
+    from meme_challenge_tpu_torch.train.steps import (
+        MODEL_INPUT_KEYS,
+        TRAIN_KEYS,
+        to_device,
+    )
+
+    cpu = copy.deepcopy(card).to("cpu")
+    n_params = sum(p.numel() for p in cpu.parameters())
+    out = {}
+    for device, model in (("cuda", card), ("cpu", cpu)):
+        b = to_device(batch, device, keys=MODEL_INPUT_KEYS + TRAIN_KEYS)
+        with torch.set_grad_enabled(grads):
+            logits = model(b)
+            entry = [logits.detach().float().cpu()]
+            if grads:
+                loss, _ = loss_fn(logits, b["labels"], b["sample_mask"])
+                loss.backward()
+                entry += [loss.item(), {n: p.grad.float().cpu()
+                                        for n, p in model.named_parameters()
+                                        if p.grad is not None}]
+        out[device] = entry
+    lc, lg = out["cuda"][0], out["cpu"][0]
+    rel = float((lc - lg).abs().max()) / float(lg.abs().max())
+    line = ("%s %.1f M parameters: fp32 logits of %d memes, card vs CPU, "
+            "%.3g relative (tol %g)" % (tag, n_params / 1e6, lc.shape[0],
+                                        rel, LOGIT_TOL))
+    ok = rel <= LOGIT_TOL and bool(torch.isfinite(lc).all())
+    if grads:
+        worst, where = grad_worst(out["cuda"][2], out["cpu"][2])
+        loss_rel = abs(out["cuda"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+        line += ("; loss %.6f vs %.6f (relative %.3g), %d gradients, worst "
+                 "%.3g of the largest magnitude (%s; tol %g)"
+                 % (out["cuda"][1], out["cpu"][1], loss_rel,
+                    len(out["cpu"][2]), worst, where, GRAD_TOL))
+        ok = ok and loss_rel <= GRAD_TOL and worst <= GRAD_TOL
+    log(on_card(line))
+    if not ok:
+        fail("%s: the card disagrees with the CPU" % tag)
+    del cpu
+
+
+def text_parity_phase(torch, synth: dict, A) -> None:
+    """Phase 11a: every MODEL_DICT entry at its published width (random
+    weights from seed 11 on the card, copied to the CPU; one head logit),
+    2 memes of 60 tokens with padding, fp32 (TF32 off), dropout off: the
+    card's logits against the
+    CPU's within LOGIT_TOL relative, and for bert and albert the
+    bce_logits loss and every gradient within GRAD_TOL (grad_check's gate);
+    no fused-attention kernel launches (the text models' attention is the
+    plain branch, as in JAX). Then Oscar (configs/oscar-base.json with the
+    fused kernels, CE over 2 labels, 60 text + 100 boxes of 2054-d
+    features): logits, loss and gradients, the card through the kernels
+    (12 forward + 12 backward launches on mma_tf32x3) and the CPU through
+    their plain versions."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.models.oscar import init_oscar_model
+    from meme_challenge_tpu_torch.models.text_models import init_text_model
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+
+    batch = _text_dataset(synth).batch(list(range(PARITY_BATCH)))
+    batch["sample_mask"] = np.ones(PARITY_BATCH, np.int32)
+    reset_launches(A)
+    for name in TEXT_MODELS:
+        card = init_text_model(name, 1, "cuda", torch_generator(11, "cuda"))
+        _card_vs_cpu(torch, "text %s" % name, card, batch,
+                     make_loss_fn("bce_logits", 1.0),
+                     grads=name in ("bert", "albert"))
+        del card
+        torch.cuda.empty_cache()
+    if any(A.LAUNCHES.values()):
+        fail("text models launched fused-attention kernels: %s"
+             % dict(A.LAUNCHES))
+    cfg = UniterConfig.from_json_file(os.path.join(
+        ROOT, "configs", "oscar-base.json")).replace(
+            use_pallas_attention=True, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)
+    batch = _oscar_batch(synth, PARITY_BATCH)
+    batch["sample_mask"] = np.ones(PARITY_BATCH, np.int32)
+    card = init_oscar_model(cfg, 2, "cuda", torch_generator(11, "cuda"))
+    reset_launches(A)
+    _card_vs_cpu(torch, "oscar, kernels on the card, plain versions on "
+                 "the CPU,", card, batch, make_loss_fn("ce"), grads=True)
+    by_route = check_route_counts(A, "oscar 11a", "float32",
+                                  ("fused_attention", "fused_attention_bwd"))
+    want = cfg.num_hidden_layers
+    if (A.LAUNCHES["fused_attention"], A.LAUNCHES["fused_attention_bwd"]) \
+            != (want, want):
+        fail("oscar 11a: launches %s, expected %d forward + %d backward"
+             % (dict(A.LAUNCHES), want, want))
+    log("oscar 11a: launches by route %s" % by_route)
+    del card
+
+
+def text_step_phase(torch, synth: dict, A) -> None:
+    """Phase 11b: one optimizer step of each MODEL_DICT entry at its
+    published width, batch 32 of 60 tokens (the text CLIs' batch), AdamW
+    with bf16 moments (the text CLIs' optimizer, TrainConfig's moments),
+    fp32, dropout as the entry has it: wall and host-issue ms, kernel ms,
+    idle share, launches, memes/s and peak memory (``_measure_step``); no
+    fused-attention launches."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.config import TrainConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.models.text_models import init_text_model
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+    from meme_challenge_tpu_torch.train.steps import (
+        MODEL_INPUT_KEYS,
+        TRAIN_KEYS,
+        create_train_state,
+        make_train_step,
+        stack_for_accum,
+        to_device,
+    )
+
+    b = _text_dataset(synth).batch(list(range(TEXT_BATCH)))
+    b["sample_mask"] = np.ones(TEXT_BATCH, np.int32)
+    b.pop("ids")
+    batch = to_device(stack_for_accum([b]), "cuda",
+                      keys=MODEL_INPUT_KEYS + TRAIN_KEYS)
+    c = TrainConfig()
+    reset_launches(A)
+    for name in TEXT_MODELS:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = init_text_model(name, 1, "cuda", torch_generator(0, "cuda"))
+        opt = Optimizer("adamw", 5e-5, lambda step: 1.0, beta1=c.beta1,
+                        beta2=c.beta2, weight_decay=c.weight_decay,
+                        max_grad_norm=c.max_grad_norm,
+                        mu_dtype=c.adam_mu_dtype, nu_dtype=c.adam_nu_dtype)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, make_loss_fn("bce_logits", 1.0), opt)
+        _measure_step(torch, lambda: step(state, batch, dropout_generator(
+            0, state.step, "cuda")), TEXT_BATCH, "text step %s, %.1f M "
+            "parameters," % (name, sum(p.numel() for p in model.parameters())
+                             / 1e6), base, "AdamW, fp32")
+        del model, opt, state, step
+    if any(A.LAUNCHES.values()):
+        fail("text steps launched fused-attention kernels: %s"
+             % dict(A.LAUNCHES))
+
+
+def _text_side_files(work: str, synth: dict) -> dict:
+    """The hate-speech CSVs (train: the train memes' text, val: dev_seen's,
+    labels none / racism / sexism in turn) and the object-text files (10
+    detections a meme of every split, classes in [0, 1600) named by
+    vocabulary words, confidences uniform in (0, 1)), from seed 0."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    out = {}
+    for split, name in (("train", "train.csv"), ("dev_seen", "val.csv")):
+        with open(synth[split]) as f:
+            texts = [json.loads(line)["text"] for line in f if line.strip()]
+        out[split] = os.path.join(work, name)
+        with open(out[split], "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["id", "text", "label"])
+            for i, t in enumerate(texts):
+                w.writerow([i, t, ("none", "racism", "sexism")[i % 3]])
+    ids = []
+    for split in ("train", "dev_seen", "dev_unseen", "test_seen",
+                  "test_unseen"):
+        with open(synth[split]) as f:
+            ids += [json.loads(line)["id"] for line in f if line.strip()]
+    out["objects"] = os.path.join(work, "objects.npz")
+    np.savez(out["objects"], ids=np.array(ids),
+             objects=rng.randint(0, 1600, (len(ids), 10)),
+             probs=rng.rand(len(ids), 10))
+    with open(synth["vocab"]) as f:
+        words = [w.strip() for w in f if w.strip().isalpha()]
+    out["obj2text"] = os.path.join(work, "obj2text.json")
+    with open(out["obj2text"], "w") as f:
+        json.dump({str(i): words[i % len(words)] for i in range(1600)}, f)
+    return out
+
+
+def _text_argv(synth: dict, run_dir: str, epochs: int) -> list:
+    return ["--data_path", synth["root"], "--vocab_file", synth["vocab"],
+            "--model_path", run_dir, "--model_save_name", "run.ckpt",
+            "--max_epoch", str(epochs), "--num_folds", "0",
+            "--max_txt_len", "60"]
+
+
+def text_cli_phase(torch, work: str, synth: dict, passlog, A) -> dict:
+    """Phase 11c: the four CLIs at full width on the synthetic dataset,
+    their defaults otherwise (batch 32 for the text CLIs):
+    train_pure_text bert with --num_layers_freeze 4 --lr_head 1e-4 (2
+    epochs; layers 0-3 of the best checkpoint bit-equal to the initial
+    weights, the head moved), train_pure_text albert --compute_bf16
+    --device_resident_data, train_hatespeech bert (3 classes),
+    train_object_text bert with a threshold range and swaps (1 epoch each):
+    zero fused-attention launches; then train_oscar (configs/oscar-base.json
+    + the fused kernels, 16 × 2, confounder repeat 3) fp32 per-sample for 2
+    epochs and bf16 pair-blocked with --device_resident_data for 1: launch
+    counts exact (12 a layer stack, forward per micro-batch and eval batch,
+    backward per micro-batch), on the dtype's tensor-core body. Every run:
+    checkpoint, CSVs, metrics JSON, train memes/s. Returns the Oscar runs'
+    launches by (kernel, dtype)."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.models.text_models import init_text_model
+    from meme_challenge_tpu_torch.train import (
+        train_hatespeech,
+        train_object_text,
+        train_oscar,
+        train_pure_text,
+    )
+
+    side = _text_side_files(work, synth)
+
+    def run(tag, cli, argv):
+        run_dir = argv[argv.index("--model_path") + 1]
+        os.makedirs(run_dir)
+        passlog.clear()
+        reset_launches(A)
+        t0 = time.time()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(A.LAUNCHES)
+        log(on_card("%s: CLI %.1f s; train %s memes/s by epoch; fused-"
+                    "attention launches %s" % (
+                        tag, wall, ["%.1f" % (n / s) for n, s in
+                                    passlog.epochs],
+                        {k: v for k, v in counts.items() if v})))
+        if not passlog.epochs:
+            fail("%s: no training epoch" % tag)
+        return run_dir, counts
+
+    def text_run(tag, cli, argv, outputs=True):
+        run_dir, counts = run(tag, cli, argv)
+        if any(counts.values()):
+            fail("%s: the text path launched fused-attention kernels %s"
+                 % (tag, counts))
+        if outputs:
+            m = check_outputs(run_dir, "run.ckpt", synth)
+            log("%s: checkpoint, 4 CSVs + metrics JSON, dev %s"
+                % (tag, {k: round(v, 4) for k, v in m["dev"].items()}))
+        return run_dir
+
+    run_dir = text_run(
+        "pure_text bert --num_layers_freeze 4 --lr_head 1e-4",
+        train_pure_text, _text_argv(synth, os.path.join(work, "pt_bert"), 2)
+        + ["--model", "bert", "--num_layers_freeze", "4", "--lr_head",
+           "1e-4", "--seed", "5"])
+    init = init_text_model("bert", 1, "cuda", torch_generator(5, "cuda"))
+    best = torch.load(os.path.join(run_dir, "run.ckpt"), map_location="cuda",
+                      weights_only=True)["model_state_dict"]
+    frozen = moved = 0
+    for n, p in init.named_parameters():
+        layer = re.search(r"\.encoder\.layer\.(\d+)\.", n)
+        if layer and int(layer.group(1)) < 4:
+            if not torch.equal(best[n], p.detach()):
+                fail("pure_text: frozen %s changed" % n)
+            frozen += 1
+        elif n.startswith("head_") and not torch.equal(best[n], p.detach()):
+            moved += 1
+    n_head = sum(1 for n, _ in init.named_parameters()
+                 if n.startswith("head_"))
+    log("pure_text bert: %d parameters of layers 0-3 bit-equal to their "
+        "initial weights, %d of %d head parameters moved"
+        % (frozen, moved, n_head))
+    if frozen != 16 * min(4, init.backbone.config.num_hidden_layers) \
+            or moved != n_head:
+        fail("pure_text: freezing or the head's update went wrong")
+    del init, best
+    text_run("pure_text albert --compute_bf16 --device_resident_data",
+             train_pure_text,
+             _text_argv(synth, os.path.join(work, "pt_albert"), 1)
+             + ["--model", "albert", "--compute_bf16",
+                "--device_resident_data"])
+    run_dir = text_run(
+        "hatespeech bert (3 classes)", train_hatespeech,
+        ["--vocab_file", synth["vocab"], "--train_csv", side["train"],
+         "--val_csv", side["dev_seen"], "--model_path",
+         os.path.join(work, "hs_bert"), "--model_save_name", "run.ckpt",
+         "--max_epoch", "1", "--max_txt_len", "60", "--model", "bert"],
+        outputs=False)
+    csv_path = os.path.join(run_dir, "run_val_preds.csv")
+    with open(os.path.join(run_dir, "run_metrics.json")) as f:
+        metrics = json.load(f)
+    if not (os.path.isfile(os.path.join(run_dir, "run.ckpt"))
+            and os.path.isfile(csv_path) and set(metrics) == {"dev", "train"}
+            and "accuracy" in metrics["dev"]):
+        fail("hatespeech: missing checkpoint, CSV or metrics (%s)"
+             % sorted(metrics))
+    log("hatespeech bert: checkpoint, val CSV (%d rows) + metrics JSON, dev "
+        "accuracy %.4f" % (len(_read_csv(csv_path)),
+                           metrics["dev"]["accuracy"]))
+    text_run("object_text bert --obj_threshold 0.3-0.7 --obj_swap_prob 0.1",
+             train_object_text,
+             _text_argv(synth, os.path.join(work, "ot_bert"), 1)
+             + ["--model", "bert", "--object_file", side["objects"],
+                "--object_to_text_file", side["obj2text"],
+                "--obj_threshold_min", "0.3", "--obj_threshold_max", "0.7",
+                "--obj_swap_prob", "0.1"])
+
+    layers = UniterConfig.from_json_file(os.path.join(
+        ROOT, "configs", "oscar-base.json")).num_hidden_layers
+    batch_size, launches = 16, {}
+    for name, dtype, epochs, extra in (
+            ("fused_attention", "float32", 2, {}),
+            ("fused_attention_blocked", "bfloat16", 1,
+             {"dtype": "bfloat16", "pallas_blocked": True})):
+        tag = "oscar %s %s" % (name, dtype)
+        run_dir = os.path.join(work, "oscar_%s_%s" % (name, dtype))
+        argv = ["--data_path", synth["root"],
+                "--feature_path", synth["feature_dir"],
+                "--vocab_file", synth["vocab"], "--model_path", run_dir,
+                "--model_save_name", "run.ckpt", "--oscar_config",
+                _oscar_config_file(work, "oscar_%s.json" % dtype,
+                                   use_pallas_attention=True, **extra),
+                "--max_epoch", str(epochs), "--num_folds", "0",
+                "--batch_size", str(batch_size),
+                "--gradient_accumulation", str(TRAIN_ACCUM),
+                "--confounder_repeat", "3", "--warmup_steps", "2",
+                "--lr", "3e-5"]
+        if dtype == "bfloat16":
+            argv.append("--device_resident_data")
+            tag += " --device_resident_data"
+        _, counts = run(tag, train_oscar, argv)
+        bwd = name + "_bwd"
+        by_route = check_route_counts(A, tag, dtype, (name, bwd))
+        groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
+                     for n, _ in passlog.epochs)
+        train_fwd = groups * TRAIN_ACCUM
+        eval_batches = sum(_ceil(n, batch_size) for n, _ in passlog.passes)
+        want = {name: layers * (train_fwd + eval_batches),
+                bwd: layers * train_fwd}
+        log(on_card("%s: launches forward %d (expected %d = %d layers x (%d "
+                    "train + %d eval forwards)), backward %d (expected %d); "
+                    "by route %s" % (tag, counts[name], want[name], layers,
+                                     train_fwd, eval_batches, counts[bwd],
+                                     want[bwd], by_route)))
+        if len(passlog.epochs) != epochs or any(
+                counts[k] != want.get(k, 0) for k in counts):
+            fail("%s: launch counts %s, expected %s, epochs %s"
+                 % (tag, counts, want, passlog.epochs))
+        m = check_outputs(run_dir, "run.ckpt", synth)
+        log("%s: checkpoint, 4 CSVs + metrics JSON, dev accuracy %.4f"
+            % (tag, m["dev"]["accuracy"]))
+        launches[(name, dtype)], launches[(bwd, dtype)] = (counts[name],
+                                                           counts[bwd])
+    return launches
+
+
 def main(argv) -> None:
     if not os.path.isdir(PACKAGE):
         fail("meme_challenge_tpu_torch/ not found beside chip_smoke.py: run "
@@ -2290,6 +2730,10 @@ def main(argv) -> None:
         handoff = timed("pretrain handoff", pretrain_handoff_phase, torch,
                         work, synth, passlog, A, fp32_dir)
         timed("pretrain steps", pretrain_step_phase, torch, synth)
+        timed("text/oscar card vs CPU", text_parity_phase, torch, synth, A)
+        timed("text steps", text_step_phase, torch, synth, A)
+        text_launches = timed("text/oscar CLIs", text_cli_phase, torch,
+                              work, synth, passlog, A)
     timed("ensemble", ensemble_scale_phase, torch)
     # the recipe's kernel and dtype also ran the crossval and fold-parallel
     # phases: their launches count with the train phase's
@@ -2307,6 +2751,12 @@ def main(argv) -> None:
             log("launches %s[%s]: + pretraining phase %d = %d"
                 % (key[0], key[1], n, launches[key] + n))
             launches[key] += n
+    # phase 11c's Oscar CLI runs count too; 11a compares with the plain
+    # versions
+    for key, n in text_launches.items():
+        log("launches %s[%s]: + Oscar CLI phase %d = %d"
+            % (key[0], key[1], n, launches[key] + n))
+        launches[key] += n
 
     # "route" is the kind of kernel (hand-written CUDA C++); "body" is the
     # CUDA body the route rule picked at the main path's shape, the one the

@@ -19,6 +19,11 @@ does so for F folds at once, into a ``FoldStack``'s ``[F, ...]`` state, and
 :func:`pretrain_state_from_checkpoint` reads reference-layout torch
 pretraining dumps, and :func:`load_pretrain_weights` warm-starts
 pretraining from either format.
+:func:`text_model_state_from_jax` and :func:`oscar_state_from_jax` do the
+same for the text-only head models and Oscar;
+:func:`hf_text_backbone_state` reads HuggingFace BERT / RoBERTa / ALBERT /
+ELECTRA dumps into the port's text backbone, and
+:func:`oscar_state_from_torch` reference Oscar checkpoints.
 This module is written anew rather than copied: the JAX package's converter
 imports its flax-side config.
 
@@ -209,33 +214,25 @@ def _a(x) -> np.ndarray:
     return np.array(x, dtype=np.float32, order="C")
 
 
-def uniter_trunk_state_from_jax(params: Mapping, prefix: str = TRUNK_PREFIX
-                                ) -> Dict[str, np.ndarray]:
-    """flax UniterModel tree (numpy leaves) → reference-layout arrays."""
-    out: Dict[str, np.ndarray] = {}
-    emb = params["embeddings"]
-    for torch_name, flax_name in (
-            ("word_embeddings.weight", "word_embeddings"),
-            ("position_embeddings.weight", "position_embeddings"),
-            ("token_type_embeddings.weight", "token_type_embeddings"),
-            ("LayerNorm.weight", "ln_scale"), ("LayerNorm.bias", "ln_bias")):
-        out[prefix + "embeddings." + torch_name] = _a(emb[flax_name])
-    img = params["img_embeddings"]
-    p = prefix + "img_embeddings."
-    out[p + "img_linear.weight"] = _t(img["img_linear_kernel"])
-    out[p + "img_linear.bias"] = _a(img["img_linear_bias"])
-    out[p + "pos_linear.weight"] = _t(img["pos_linear_kernel"])
-    out[p + "pos_linear.bias"] = _a(img["pos_linear_bias"])
-    for torch_name, flax_name in (
-            ("img_layer_norm.weight", "img_ln_scale"),
-            ("img_layer_norm.bias", "img_ln_bias"),
-            ("pos_layer_norm.weight", "pos_ln_scale"),
-            ("pos_layer_norm.bias", "pos_ln_bias"),
-            ("LayerNorm.weight", "ln_scale"), ("LayerNorm.bias", "ln_bias"),
-            ("mask_embedding.weight", "mask_embedding")):
-        out[p + torch_name] = _a(img[flax_name])
+def _embeddings_state_from_jax(emb: Mapping, prefix: str
+                               ) -> Dict[str, np.ndarray]:
+    """A flax ``TextEmbeddings`` tree → ``{prefix}*`` arrays (BERT's
+    ``word/position/token_type_embeddings`` and ``LayerNorm``)."""
+    return {prefix + torch_name: _a(emb[flax_name])
+            for torch_name, flax_name in (
+                ("word_embeddings.weight", "word_embeddings"),
+                ("position_embeddings.weight", "position_embeddings"),
+                ("token_type_embeddings.weight", "token_type_embeddings"),
+                ("LayerNorm.weight", "ln_scale"),
+                ("LayerNorm.bias", "ln_bias"))}
 
-    enc = params["encoder"]
+
+def _encoder_state_from_jax(enc: Mapping, prefix: str
+                            ) -> Dict[str, np.ndarray]:
+    """A flax ``StackedEncoder`` tree (``[L, ...]`` stacked leaves) →
+    ``{prefix}layer.{i}.*`` arrays: the ``[L, H, 3H]`` QKV kernel split
+    into query, key and value, kernels transposed."""
+    out: Dict[str, np.ndarray] = {}
     qkv_k = np.asarray(enc["qkv_kernel"], dtype=np.float32)   # [L, H, 3H]
     qkv_b = np.asarray(enc["qkv_bias"], dtype=np.float32)     # [L, 3H]
     L, H = qkv_k.shape[0], qkv_k.shape[1]
@@ -252,7 +249,7 @@ def uniter_trunk_state_from_jax(params: Mapping, prefix: str = TRUNK_PREFIX
         "output.LayerNorm.bias": ("ffn_ln_bias", False),
     }
     for i in range(L):
-        lp = prefix + "encoder.layer.%d." % i
+        lp = prefix + "layer.%d." % i
         for j, name in enumerate(("query", "key", "value")):
             out[lp + "attention.self.%s.weight" % name] = _t(
                 qkv_k[i, :, j * H:(j + 1) * H])
@@ -261,6 +258,31 @@ def uniter_trunk_state_from_jax(params: Mapping, prefix: str = TRUNK_PREFIX
         for torch_name, (flax_name, transpose) in per_layer.items():
             mat = np.asarray(enc[flax_name][i])
             out[lp + torch_name] = _t(mat) if transpose else _a(mat)
+    return out
+
+
+def uniter_trunk_state_from_jax(params: Mapping, prefix: str = TRUNK_PREFIX
+                                ) -> Dict[str, np.ndarray]:
+    """flax UniterModel tree (numpy leaves) → reference-layout arrays."""
+    out = _embeddings_state_from_jax(params["embeddings"],
+                                     prefix + "embeddings.")
+    img = params["img_embeddings"]
+    p = prefix + "img_embeddings."
+    out[p + "img_linear.weight"] = _t(img["img_linear_kernel"])
+    out[p + "img_linear.bias"] = _a(img["img_linear_bias"])
+    out[p + "pos_linear.weight"] = _t(img["pos_linear_kernel"])
+    out[p + "pos_linear.bias"] = _a(img["pos_linear_bias"])
+    for torch_name, flax_name in (
+            ("img_layer_norm.weight", "img_ln_scale"),
+            ("img_layer_norm.bias", "img_ln_bias"),
+            ("pos_layer_norm.weight", "pos_ln_scale"),
+            ("pos_layer_norm.bias", "pos_ln_bias"),
+            ("LayerNorm.weight", "ln_scale"), ("LayerNorm.bias", "ln_bias"),
+            ("mask_embedding.weight", "mask_embedding")):
+        out[p + torch_name] = _a(img[flax_name])
+
+    out.update(_encoder_state_from_jax(params["encoder"],
+                                       prefix + "encoder."))
     dense = params["pooler"]["dense"]
     out[prefix + "pooler.dense.weight"] = _t(dense["kernel"])
     out[prefix + "pooler.dense.bias"] = _a(dense["bias"])
@@ -334,6 +356,171 @@ def pretrain_state_from_checkpoint(sd: Mapping) -> Dict[str, torch.Tensor]:
         img = out[PRETRAIN_TRUNK_PREFIX + "img_embeddings.img_linear.weight"]
         out[mask_key] = torch.zeros((2, img.shape[1]), dtype=img.dtype)
     out.update(heads)
+    return out
+
+
+def _linear_from_jax(dense: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {prefix + "weight": _t(dense["kernel"]),
+            prefix + "bias": _a(dense["bias"])}
+
+
+def text_model_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``TransformerClassificationHead`` tree (``{"backbone": ...,
+    "head_dense_{i}", "head_ln_{i}", "head_out"}``, numpy leaves) → the
+    port's ``models.text_models.TransformerClassificationHead``
+    ``state_dict`` (CPU tensors)."""
+    bb = params["backbone"]
+    out = {"backbone.embeddings." + torch_name: _a(bb[flax_name])
+           for torch_name, flax_name in (
+               ("word_embeddings.weight", "word_embeddings"),
+               ("position_embeddings.weight", "position_embeddings"),
+               ("token_type_embeddings.weight", "token_type_embeddings"),
+               ("LayerNorm.weight", "emb_ln_scale"),
+               ("LayerNorm.bias", "emb_ln_bias"))}
+    if "emb_proj" in bb:
+        out.update(_linear_from_jax(bb["emb_proj"], "backbone.emb_proj."))
+    out.update(_encoder_state_from_jax(bb["encoder"], "backbone.encoder."))
+    if "pooler" in bb:
+        out.update(_linear_from_jax(bb["pooler"]["dense"],
+                                    "backbone.pooler.dense."))
+    for name, leaf in params.items():
+        if name.startswith("head_ln_"):
+            out[name + ".weight"] = _a(leaf["scale"])
+            out[name + ".bias"] = _a(leaf["bias"])
+        elif name.startswith("head_"):
+            out.update(_linear_from_jax(leaf, name + "."))
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def oscar_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``ImageBertForSequenceClassification`` tree (numpy leaves) → the
+    port's ``models.oscar.ImageBertForSequenceClassification``
+    ``state_dict`` (CPU tensors): the linear head (``cls_out``) or the MLP
+    (``cls_hidden`` + ``cls_out``), the image LayerNorm if present."""
+    bert = params["bert"]
+    out = _embeddings_state_from_jax(bert["embeddings"], "bert.embeddings.")
+    out["bert.img_embedding.weight"] = _t(bert["img_embedding_kernel"])
+    out["bert.img_embedding.bias"] = _a(bert["img_embedding_bias"])
+    if "img_ln_scale" in bert:
+        out["bert.LayerNorm.weight"] = _a(bert["img_ln_scale"])
+        out["bert.LayerNorm.bias"] = _a(bert["img_ln_bias"])
+    out.update(_encoder_state_from_jax(bert["encoder"], "bert.encoder."))
+    out.update(_linear_from_jax(bert["pooler"]["dense"], "bert.pooler.dense."))
+    if "cls_hidden" in params:
+        out.update(_linear_from_jax(params["cls_hidden"], "classifier.0."))
+        out.update(_linear_from_jax(params["cls_out"], "classifier.2."))
+    else:
+        out.update(_linear_from_jax(params["cls_out"], "classifier."))
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+# one BERT layer's keys (reference / HF layout), as the port's BertLayer
+_BERT_LAYER_KEYS = tuple(
+    "%s.%s" % (m, w) for m in (
+        "attention.self.query", "attention.self.key", "attention.self.value",
+        "attention.output.dense", "attention.output.LayerNorm",
+        "intermediate.dense", "output.dense", "output.LayerNorm")
+    for w in ("weight", "bias"))
+# ALBERT's shared layer (HF albert_layer_groups.0.albert_layers.0) → BertLayer
+_ALBERT_LAYER = {
+    "attention.query": "attention.self.query",
+    "attention.key": "attention.self.key",
+    "attention.value": "attention.self.value",
+    "attention.dense": "attention.output.dense",
+    "attention.LayerNorm": "attention.output.LayerNorm",
+    "ffn": "intermediate.dense",
+    "ffn_output": "output.dense",
+    "full_layer_layer_norm": "output.LayerNorm",
+}
+
+
+def _bert_layers(sd: Mapping, src: str, dst: str, num_layers: int
+                 ) -> Dict[str, torch.Tensor]:
+    """``{src}layer.{i}.*`` of a BERT-layout state dict for every i below
+    ``num_layers`` → ``{dst}layer.{i}.*``; a missing key raises KeyError."""
+    return {"%slayer.%d.%s" % (dst, i, k):
+            torch.as_tensor(sd["%slayer.%d.%s" % (src, i, k)])
+            for i in range(num_layers) for k in _BERT_LAYER_KEYS}
+
+
+def hf_text_backbone_state(sd: Mapping, config) -> Dict[str, torch.Tensor]:
+    """A HuggingFace BERT / RoBERTa / ALBERT / ELECTRA model state dict →
+    the port's ``models.text_models.TextBackbone`` ``state_dict`` (the JAX
+    package's ``hf_text_backbone_params`` in the port's layout).
+
+    - bert / roberta: ``embeddings.*``, ``encoder.layer.{i}.*``,
+      ``pooler.dense.*`` carry over by name (a RoBERTa dump without
+      ``token_type_embeddings`` gets one zero row);
+    - electra: ``embeddings_project`` → ``emb_proj``; no pooler;
+    - albert: ``encoder.embedding_hidden_mapping_in`` → ``emb_proj``, the one
+      shared layer ``encoder.albert_layer_groups.0.albert_layers.0`` →
+      ``encoder.layer.0``, ``pooler`` → ``pooler.dense``.
+    A ``bert.`` / ``roberta.`` / ``electra.`` / ``albert.`` prefix is
+    stripped; keys the backbone has no place for (``position_ids``
+    buffers, task heads) are dropped; a key it needs and the dump lacks
+    raises KeyError."""
+    sd = rename_reference_keys(
+        sd, strip_prefixes=("bert.", "roberta.", "electra.", "albert."))
+
+    def g(k):
+        return torch.as_tensor(sd[k])
+
+    out = {"embeddings.%s.weight" % n: g("embeddings.%s.weight" % n)
+           for n in ("word_embeddings", "position_embeddings")}
+    type_key = "embeddings.token_type_embeddings.weight"
+    out[type_key] = (g(type_key) if type_key in sd else torch.zeros(
+        (1, out["embeddings.word_embeddings.weight"].shape[1])))
+    for w in ("weight", "bias"):
+        out["embeddings.LayerNorm." + w] = g("embeddings.LayerNorm." + w)
+        if config.family == "electra" and "embeddings_project.weight" in sd:
+            out["emb_proj." + w] = g("embeddings_project." + w)
+        if config.family == "albert":
+            out["emb_proj." + w] = g(
+                "encoder.embedding_hidden_mapping_in." + w)
+            p = "encoder.albert_layer_groups.0.albert_layers.0."
+            for hf, ours in _ALBERT_LAYER.items():
+                out["encoder.layer.0.%s.%s" % (ours, w)] = g(
+                    "%s%s.%s" % (p, hf, w))
+        if config.has_pooler:
+            out["pooler.dense." + w] = g(
+                ("pooler." if config.family == "albert" else "pooler.dense.")
+                + w)
+    if config.family != "albert":
+        out.update(_bert_layers(sd, "encoder.", "encoder.",
+                                config.num_hidden_layers))
+    return out
+
+
+def oscar_state_from_torch(sd: Mapping, config) -> Dict[str, torch.Tensor]:
+    """A reference Oscar checkpoint (``ImageBertForSequenceClassification``,
+    model/oscar.py:284-328 around ``BertImgModel`` :145-273) → the port's
+    ``models.oscar.ImageBertForSequenceClassification`` ``state_dict``.
+
+    The port keeps the reference's keys, so this reads the ones the model
+    has, as JAX ``oscar_params_from_torch`` does: the HF-BERT embeddings,
+    ``config.num_hidden_layers`` encoder layers and pooler under ``bert.``,
+    the 2054 → H ``bert.img_embedding``, the image LayerNorm
+    ``bert.LayerNorm`` where the dump has one (``use_img_layernorm``), and
+    the linear head ``classifier.*`` or the MLP ``classifier.{0,2}.*``.
+    TF-era ``gamma``/``beta`` names are renamed; other keys (the
+    ``dis_code`` branches, buffers) are dropped; a missing key raises
+    KeyError. Build the model with the head and image LayerNorm the keys
+    show."""
+    sd = rename_reference_keys(sd, strip_prefixes=())
+    names = ["bert.embeddings.%s.weight" % n for n in (
+        "word_embeddings", "position_embeddings", "token_type_embeddings")]
+    for w in ("weight", "bias"):
+        names += ["bert.embeddings.LayerNorm." + w, "bert.img_embedding." + w,
+                  "bert.pooler.dense." + w]
+        if "bert.LayerNorm.weight" in sd:
+            names.append("bert.LayerNorm." + w)
+        if "classifier.weight" in sd:
+            names.append("classifier." + w)
+        else:
+            names += ["classifier.0." + w, "classifier.2." + w]
+    out = {k: torch.as_tensor(sd[k]) for k in names}
+    out.update(_bert_layers(sd, "bert.encoder.", "bert.encoder.",
+                            config.num_hidden_layers))
     return out
 
 

@@ -51,13 +51,19 @@ _NO_DECAY_SUFFIXES = ("bias", "LayerNorm.weight", "img_layer_norm.weight",
                       "region_classifier.net.2.weight")
 
 
+# the text models' head LayerNorms (flax ``nn.LayerNorm`` ``scale`` in JAX)
+_HEAD_LN = re.compile(r"(?:^|\.)head_ln_\d+\.weight$")
+
+
 def no_decay_mask(names) -> Dict[str, bool]:
     """True = apply weight decay. Every ``*bias``, every ``LayerNorm.weight``,
-    the image and position LayerNorm weights and the pretraining heads'
-    LayerNorm weights are excluded (reference optim_utils.py:16; the JAX
-    package's ``*bias`` / ``*ln_scale`` names);
+    the image and position LayerNorm weights, the pretraining heads' and the
+    text models' head LayerNorm weights are excluded (reference
+    optim_utils.py:16; the JAX package's ``*bias`` / ``*ln_scale`` /
+    ``scale`` names);
     ``mask_embedding`` and every matrix and embedding table decay."""
-    return {n: not n.endswith(_NO_DECAY_SUFFIXES) for n in names}
+    return {n: not (n.endswith(_NO_DECAY_SUFFIXES) or _HEAD_LN.search(n))
+            for n in names}
 
 
 _LAYER = re.compile(r"(?:^|\.)encoder\.layer\.(\d+)\.")

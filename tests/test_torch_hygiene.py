@@ -60,8 +60,15 @@ def test_importing_every_port_module_loads_no_jax():
             "meme_challenge_tpu_torch.train.pretrain_uniter",
             "meme_challenge_tpu_torch.tools.prep_memotion",
             "meme_challenge_tpu_torch.tools.misclassification",
-            "meme_challenge_tpu_torch.tools.convert_feature_export"} <= set(
-                mods)
+            "meme_challenge_tpu_torch.tools.convert_feature_export",
+            "meme_challenge_tpu_torch.data.hatespeech",
+            "meme_challenge_tpu_torch.data.object_text",
+            "meme_challenge_tpu_torch.models.text_models",
+            "meme_challenge_tpu_torch.models.oscar",
+            "meme_challenge_tpu_torch.train.train_pure_text",
+            "meme_challenge_tpu_torch.train.train_hatespeech",
+            "meme_challenge_tpu_torch.train.train_object_text",
+            "meme_challenge_tpu_torch.train.train_oscar"} <= set(mods)
     # modules an interpreter start-up hook may preload are not the port's
     code = (
         "import importlib, json, sys\n"
@@ -140,3 +147,25 @@ def test_pretrain_cli_defaults_to_cuda_and_raises_without_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="--device cpu"):
         pretrain_uniter.main(["--vocab_file", "unused.txt"])
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("train_pure_text", ["--vocab_file", "unused.txt"]),
+    ("train_hatespeech", ["--vocab_file", "unused.txt", "--train_csv",
+                          "unused.csv", "--val_csv", "unused.csv"]),
+    ("train_object_text", ["--vocab_file", "unused.txt", "--object_file",
+                           "unused.npz", "--object_to_text_file",
+                           "unused.json"]),
+    ("train_oscar", ["--vocab_file", "unused.txt"]),
+])
+def test_text_and_oscar_clis_default_to_cuda_and_raise_without_card(cli,
+                                                                     argv):
+    """The text-only and Oscar CLIs run on CUDA unless asked for the CPU;
+    without a card they raise before they read any file."""
+    import importlib
+
+    module = importlib.import_module("meme_challenge_tpu_torch.train." + cli)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        module.main(argv)
