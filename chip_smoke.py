@@ -119,6 +119,27 @@ Phases, each of which makes the script exit non-zero if it fails:
    --device_resident_data (1 epoch) with exact launch counts on the dtype's
    tensor-core body; every run's checkpoint, CSVs, metrics JSON and train
    memes/s. The Oscar CLI runs' launches count in the kernels' record.
+12. Extraction: the bottom-up-attention detector at ``DetectorConfig()``
+   (Caffe ResNet-101, 1601 classes, 401 attributes, shortest side 600,
+   longest 1000), random weights from a seed with the decision layers
+   rescaled (DET_SCALE), on 8 synthetic 600 × 800 images and one of
+   480 × 1000: (a) card vs CPU, fp32 with TF32 off, module by module: the
+   res4 map and the RPN outputs of one image, the ROI head on the same 32
+   proposals from the same map, each within 1e-4 of its largest magnitude;
+   the ROIPool of all proposals bit-equal on the card, the CPU and the
+   native op, with its largest intermediate (at most 1 GiB); ``max_conf``
+   identical through ``device`` and ``native_batched``; (b)
+   ``extract_features`` through its CLI on PNG files: mode 1, 2, 3 (from
+   mode 2's boxes) and a resumed mode 1 that writes nothing, every npz's
+   keys and shapes; ``convert_feature_export`` → ``load_img_feature`` →
+   ``MemeDataset`` → one UNITER-base forward through the fused kernels
+   (12 launches, counted in the kernels' record); (c) s/img for each blob
+   transfer dtype at lookahead 1 and 2 (equal to per-image ``extract``
+   bit for bit), the bf16 and uint8 features
+   against fp32 (2e-2), and one image's breakdown (host preprocessing,
+   backbone + RPN, proposal stage, ROI stage, ``max_conf`` both ways, idle
+   share, launches, top device operations, peak memory); (d) the
+   ``visualize_boxes`` CLI on 2 images, where PIL and cv2 import.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2651,6 +2672,519 @@ def text_cli_phase(torch, work: str, synth: dict, passlog, A) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ 12. extraction
+
+DET_SEED = 9
+DET_TOL = 1e-4      # card vs CPU, of each tensor's largest magnitude
+DET_LOWP_TOL = 2e-2  # bf16 / uint8 blobs against fp32 (tests/test_detector.py)
+# The random stack's outputs are in the hundreds: unscaled, the RPN's
+# scores saturate and every anchor decodes to the whole image (one proposal
+# after NMS). These factors (the CPU tests' own) spread the scores and keep
+# the box deltas small; the class scores stay peaked, so the card and the
+# CPU take the same argmax into the attribute head.
+DET_SCALE = {"proposal_generator.rpn_head.objectness_logits.weight": 0.02,
+             "proposal_generator.rpn_head.anchor_deltas.weight": 0.001,
+             "roi_heads.box_predictor.bbox_pred.weight": 0.001,
+             "roi_heads.box_predictor.cls_score.weight": 0.02,
+             "roi_heads.box_predictor.attr_linear2.weight": 0.02}
+
+
+def detector_setup(torch):
+    """``DetectorConfig()`` (Caffe ResNet-101, 1601 classes, 401
+    attributes, 600 / 1000) with random weights from DET_SEED, the decision
+    layers rescaled; 8 synthetic 600 × 800 images as bench.py makes them and
+    one of 480 × 1000 (the long side's cap)."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.extract.detector import (
+        DetectorConfig,
+        init_detector,
+    )
+
+    cfg = DetectorConfig()
+    state = init_detector(cfg, torch.Generator().manual_seed(DET_SEED)
+                          ).state_dict()
+    for key, factor in DET_SCALE.items():
+        state[key] = state[key] * factor
+    rng = np.random.RandomState(DET_SEED)
+    images = [(rng.rand(600, 800, 3) * 255).astype(np.uint8)
+              for _ in range(8)]
+    images.append((rng.rand(480, 1000, 3) * 255).astype(np.uint8))
+    log("extraction: BUADetector %.1f M parameters (depth %d, %d classes, "
+        "%d attributes), %d images" % (
+            sum(v.numel() for v in state.values()) / 1e6, cfg.depth,
+            cfg.num_classes, cfg.num_attributes, len(images)))
+    return cfg, state, images
+
+
+def _det_rel(got, want) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def extract_check_phase(torch, cfg, state, images) -> None:
+    """Phase 12a: card vs CPU, module by module, fp32 with TF32 off, on one
+    600 × 800 image: the res4 map, the RPN logits and deltas; the ROI head
+    on the same 32 proposals from the same map (features, cls_prob,
+    bbox_deltas, attr_prob), each within DET_TOL of its largest magnitude;
+    the ROIPool of all proposals on the same map tensor bit-equal on the
+    card, on the CPU and in native.roi_pool, with its largest intermediate
+    (at most 1 GiB); ``max_conf`` through ``device`` and ``native_batched``
+    identical on the image's boxes and probabilities."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.extract import native
+    from meme_challenge_tpu_torch.extract.detector import (
+        FeatureExtractor,
+        transfer_blob,
+    )
+    from meme_challenge_tpu_torch.extract.ops import (
+        _levels,
+        roi_bin_quantize,
+        roi_pool_device,
+    )
+    from meme_challenge_tpu_torch.ops.nms import max_conf_device
+
+    card = FeatureExtractor(cfg, state, device="cuda")
+    cpu = FeatureExtractor(cfg, state, device="cpu")
+    blob, scale, (h, w) = transfer_blob(images[0], cfg)
+    x = blob.permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        got = card.model.backbone_rpn(x.cuda())
+        want = cpu.model.backbone_rpn(x)
+    errs = {n: _det_rel(g, wt) for n, g, wt in
+            zip(("res4", "rpn logits", "rpn deltas"), got, want)}
+    log(on_card("extraction 12a: blob %s, res4 %s; card vs CPU (of the "
+                "largest magnitude): %s (tol %g)" % (
+                    tuple(blob.shape), tuple(got[0].shape),
+                    {k: float("%.3g" % v) for k, v in errs.items()},
+                    DET_TOL)))
+    if max(errs.values()) > DET_TOL:
+        fail("extraction: backbone/RPN card vs CPU %s" % errs)
+    feat = want[0]
+    props = card._proposals(got[1].permute(0, 2, 3, 1).cpu().numpy(),
+                            got[2].permute(0, 2, 3, 1).cpu().numpy(), h, w)
+    P = cfg.pooler_resolution
+
+    # ROIPool: the same map on both devices and in the native op
+    feat_card = feat.cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pooled = roi_pool_device(feat_card[0], props, 1.0 / cfg.anchor_base,
+                             (P, P))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    _, _, bin_h, bin_w = roi_bin_quantize(props, 1.0 / cfg.anchor_base,
+                                          (P, P))
+    H, W = feat.shape[2:]
+    table = (_levels(float(bin_h.max()), H) * _levels(float(bin_w.max()), W)
+             * feat.shape[1] * H * W * 4)
+    gather = len(props) * P * P * feat.shape[1] * 4
+    pooled_cpu = roi_pool_device(feat[0], props, 1.0 / cfg.anchor_base,
+                                 (P, P))
+    host = native.roi_pool(feat[0].numpy(), props, 1.0 / cfg.anchor_base,
+                           (P, P))
+    exact = (torch.equal(pooled.cpu(), pooled_cpu)
+             and np.array_equal(pooled_cpu.numpy(), host))
+    pool_ms = _profiled(torch, lambda: roi_pool_device(
+        feat_card[0], props, 1.0 / cfg.anchor_base, (P, P)))[0]
+    log(on_card("extraction 12a: %d proposals; ROIPool %s card == CPU == "
+                "native: %s; %s ms of kernels; largest intermediate: "
+                "range-max table %.1f MiB, a gathered [R, %d, %d, C] %.1f MiB; peak "
+                "above the map %.1f MiB (output %.1f MiB included)" % (
+                    len(props), tuple(pooled.shape), exact,
+                    "%.3f" % pool_ms if pool_ms is not None
+                    else "not measured",
+                    table / 2 ** 20, P, P, gather / 2 ** 20, peak / 2 ** 20,
+                    pooled.numel() * 4 / 2 ** 20)))
+    if not exact:
+        fail("extraction: ROIPool differs between the card, the CPU and the "
+             "native op")
+    if max(table, gather, peak - pooled.numel() * 4) > 2 ** 30:
+        fail("extraction: ROIPool intermediate above 1 GiB")
+
+    # the ROI head on the same 32 proposals from the same map
+    with torch.inference_mode():
+        head_card = card._roi_stage(feat_card, props[:32])
+        head_cpu = cpu._roi_stage(feat, props[:32])
+    cls = head_cpu["cls_prob"][:, 1:].sort(dim=1).values
+    margin = float((cls[:, -1] - cls[:, -2]).min())
+    errs = {k: _det_rel(head_card[k], head_cpu[k]) for k in head_cpu}
+    log(on_card("extraction 12a: ROI head on 32 proposals, card vs CPU: %s "
+                "(tol %g); smallest top-2 class gap %.3g" % (
+                    {k: float("%.3g" % v) for k, v in errs.items()}, DET_TOL,
+                    margin)))
+    if max(errs.values()) > DET_TOL:
+        fail("extraction: ROI head card vs CPU %s" % errs)
+
+    # max_conf: device and native_batched on the image's boxes and probs
+    with torch.inference_mode():
+        cls_prob = card._roi_stage(feat_card, props)["cls_prob"].cpu().numpy()
+    boxes = props / scale
+    t0 = time.perf_counter()
+    ref = native.nms_max_conf(boxes, cls_prob, cfg.test_nms_thresh)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    max_conf_device(boxes, cls_prob, cfg.test_nms_thresh, "cuda")
+    t0 = time.perf_counter()
+    dev = max_conf_device(boxes, cls_prob, cfg.test_nms_thresh, "cuda")
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    log(on_card("extraction 12a: max_conf over %d boxes x %d classes: "
+                "device == native_batched: %s; native_batched %.1f ms, "
+                "device %.1f ms (host clock)" % (
+                    cls_prob.shape[0], cls_prob.shape[1] - 1,
+                    np.array_equal(dev, ref), native_ms, dev_ms)))
+    if not np.array_equal(dev, ref):
+        fail("extraction: max_conf differs between device and native")
+
+
+def _write_pngs(directory: str, images) -> list:
+    from PIL import Image
+
+    os.makedirs(directory, exist_ok=True)
+    stems = []
+    for i, img in enumerate(images):
+        stem = "%05d" % (i + 1)
+        Image.fromarray(img[:, :, ::-1]).save(
+            os.path.join(directory, stem + ".png"))   # BGR → RGB file
+        stems.append(stem)
+    return stems
+
+
+def extract_cli_phase(torch, work: str, cfg, state, images, synth: dict,
+                      A) -> dict:
+    """Phase 12b: ``extract_features`` through its CLI on the card (PNG
+    files, the weights as a torch file): mode 1, mode 2, mode 3 from mode
+    2's boxes (--bbox-dir), then mode 1 again, which writes nothing; each
+    npz's keys and shapes. Then the hand-off: ``convert_feature_export`` on
+    mode 1's files, ``load_img_feature`` through ``MemeDataset``, and one
+    full-width UNITER-base forward through the fused kernels (12 launches,
+    counted in the kernels' record). Returns those launches."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.data.meme_dataset import MemeDataset
+    from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+    from meme_challenge_tpu_torch.extract import extract_features
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.tools import convert_feature_export
+    from meme_challenge_tpu_torch.train.steps import to_device
+
+    root = os.path.join(work, "extraction")
+    stems = _write_pngs(os.path.join(root, "img"), images)
+    weights = os.path.join(root, "bua_random.pt")
+    torch.save(state, weights)
+    common = ["--image-dir", os.path.join(root, "img"), "--weights", weights]
+    out = {m: os.path.join(root, "mode%d" % m) for m in (1, 2, 3)}
+
+    def run(mode, extra=()):
+        t0 = time.time()
+        extract_features.main(common + ["--out-dir", out[mode], "--mode",
+                                        str(mode), *extra])
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    walls = {1: run(1), 2: run(2), 3: run(3, ("--bbox-dir", out[2]))}
+    counts = {}
+    for mode in (1, 2, 3):
+        files = sorted(os.listdir(out[mode]))
+        if files != [s + ".npz" for s in stems]:
+            fail("extraction mode %d wrote %s" % (mode, files))
+        n = []
+        for f in files:
+            z = np.load(os.path.join(out[mode], f), allow_pickle=True)
+            if mode == 2:
+                ok = (sorted(z.files) == ["bbox", "cls_prob"]
+                      and z["bbox"].shape[0] <= cfg.max_boxes
+                      and z["bbox"].shape[1:] == (4,)
+                      and z["cls_prob"].shape == (z["bbox"].shape[0],
+                                                  cfg.num_classes))
+                n.append(z["bbox"].shape[0])
+            else:
+                k = int(z["num_bbox"])
+                info = z["info"].item()
+                ok = (sorted(z.files) == ["bbox", "image_h", "image_w",
+                                          "info", "num_bbox", "x"]
+                      and z["x"].shape == (k, 2048)
+                      and z["bbox"].shape == (k, 4)
+                      and np.isfinite(z["x"]).all()
+                      and info["objects_id"].shape == (k,))
+                if mode == 1:
+                    ok = ok and cfg.min_boxes <= k <= cfg.max_boxes
+                else:
+                    gt = np.load(os.path.join(out[2], f))["bbox"]
+                    ok = ok and k == gt.shape[0] and np.allclose(
+                        z["bbox"], gt, rtol=1e-5, atol=1e-3)
+                n.append(k)
+            if not ok:
+                fail("extraction mode %d: %s has keys %s and shapes %s"
+                     % (mode, f, z.files,
+                        {k: z[k].shape for k in z.files}))
+        counts[mode] = n
+    stamps = {f: os.stat(os.path.join(out[1], f)).st_mtime_ns
+              for f in os.listdir(out[1])}
+    wall_skip = run(1)
+    if stamps != {f: os.stat(os.path.join(out[1], f)).st_mtime_ns
+                  for f in os.listdir(out[1])}:
+        fail("extraction: the resumed mode-1 run rewrote files")
+    log(on_card("extraction 12b: CLI mode 1 %.1f s (boxes %s), mode 2 %.1f s "
+                "(boxes %s), mode 3 from mode 2's boxes %.1f s (boxes %s), "
+                "mode 1 again %.1f s (nothing written)" % (
+                    walls[1], counts[1], walls[2], counts[2], walls[3],
+                    counts[3], wall_skip)))
+
+    # hand-off: npz → {id}.npy + {id}_info.npy → MemeDataset → UNITER-base
+    conv = os.path.join(root, "npy")
+    convert_feature_export.main(["--input_dir", out[1], "--output_dir",
+                                 conv])
+    split = os.path.join(root, "extracted.jsonl")
+    with open(split, "w") as f:
+        for i, stem in enumerate(stems):
+            f.write(json.dumps({"id": int(stem), "label": i % 2,
+                                "text": "an extracted meme %d" % i}) + "\n")
+    ds = MemeDataset(split, feature_dir=conv,
+                     tokenizer=BertTokenizer(synth["vocab"]),
+                     max_txt_len=60, max_bb=100, img_dim=2048)
+    batch = ds.batch(list(range(len(stems))))
+    model = init_meme_uniter(UniterConfig(use_pallas_attention=True), 1,
+                             "cuda", torch_generator(0, "cuda"))
+    reset_launches(A)
+    with torch.inference_mode():
+        logits = model(to_device(batch, "cuda")).float().cpu()
+    torch.cuda.synchronize()
+    layers = UniterConfig().num_hidden_layers
+    by_route = check_route_counts(A, "extraction UNITER forward", "float32",
+                                  ("fused_attention",))
+    n_boxes = [int(v) for v in batch["img_mask"].sum(1)]
+    log(on_card("extraction 12b: converted features of %d images (%s "
+                "boxes) through load_img_feature → MemeDataset → UNITER-base "
+                "fp32 forward: logits %s finite %s, launches %s" % (
+                    len(stems), n_boxes, tuple(logits.shape),
+                    bool(torch.isfinite(logits).all()), by_route)))
+    if (tuple(logits.shape) != (len(stems), 1)
+            or not torch.isfinite(logits).all()
+            or A.LAUNCHES["fused_attention"] != layers
+            or n_boxes != counts[1]):
+        fail("extraction: the UNITER forward on the extracted features went "
+             "wrong (launches %s)" % dict(A.LAUNCHES))
+    del model
+    return {("fused_attention", "float32"): A.LAUNCHES["fused_attention"]}
+
+
+def extract_time_phase(torch, cfg, state, images) -> None:
+    """Phase 12c: s/img through ``extract_batch`` (mode 1) over the 8
+    600 × 800 images after 2 warm-up images, for each blob transfer dtype
+    and lookahead 1 and 2 (fp32: both equal to per-image ``extract`` bit
+    for bit); mode-3 features of the bf16 and uint8 blobs
+    within DET_LOWP_TOL of the fp32 ones; and where one image's time goes
+    (host preprocessing, backbone + RPN on the card, the host proposal
+    stage, the ROI stage on the card, max_conf both ways, the device's idle
+    share, launches, the top device operations, peak memory)."""
+    import dataclasses
+
+    import numpy as np
+
+    from meme_challenge_tpu_torch.extract.detector import (
+        FeatureExtractor,
+        transfer_blob,
+    )
+
+    gt = None
+    feats = {}
+    for dt in ("float32", "bfloat16", "uint8"):
+        ex = FeatureExtractor(dataclasses.replace(cfg, blob_transfer_dtype=dt),
+                              state, device="cuda")
+        ex.extract_batch(images[:2])
+        rates, batches = {}, {}
+        for lookahead in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches[lookahead] = ex.extract_batch(images[:8],
+                                                  lookahead=lookahead)
+            torch.cuda.synchronize()
+            rates[lookahead] = (time.perf_counter() - t0) / 8
+        if dt == "float32":
+            # streaming changes nothing: per-image extract, bit for bit
+            for i, img in enumerate(images[:8]):
+                one = ex.extract(img)
+                for lookahead, outs in batches.items():
+                    if not all(np.array_equal(outs[i][k], one[k])
+                               for k in ("x", "bbox", "num_bbox")):
+                        fail("extraction: extract_batch (lookahead %d) "
+                             "differs from extract on image %d"
+                             % (lookahead, i))
+            log(on_card("extraction 12c: extract_batch at lookahead 1 and "
+                        "2 equals per-image extract on the 8 images, bit "
+                        "for bit"))
+        if gt is None:
+            gt = ex.extract(images[0], mode=1)["bbox"]
+        feats[dt] = ex.extract(images[0], mode=3, gt_boxes=gt)["x"]
+        log(on_card("extraction 12c: blob %s: %.4f s/img at lookahead 1, "
+                    "%.4f at lookahead 2 (mode 1, 8 images of 600 x 800)"
+                    % (dt, rates[1], rates[2])))
+        if dt == "float32":
+            ex32 = ex
+        else:
+            del ex
+    ref = torch.from_numpy(feats["float32"])
+    errs = {dt: _det_rel(torch.from_numpy(feats[dt]), ref)
+            for dt in ("bfloat16", "uint8")}
+    log(on_card("extraction 12c: mode-3 features of %d boxes against the "
+                "fp32 blob's: %s (tol %g)" % (
+                    len(gt), {k: float("%.3g" % v) for k, v in errs.items()},
+                    DET_LOWP_TOL)))
+    if max(errs.values()) > DET_LOWP_TOL:
+        fail("extraction: low-precision blobs %s" % errs)
+
+    # one image, stage by stage (fp32 blob)
+    ex, img = ex32, images[0]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        blob, scale, (h, w) = transfer_blob(img, cfg)
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        x = blob.cuda().permute(0, 3, 1, 2).contiguous()
+        bb_ms, bb_host = device_ms(lambda: ex.model.backbone_rpn(x),
+                                   iters=3, reps=3)
+        feat, logits, deltas, event = ex._backbone_rpn(blob)
+        event.synchronize()
+        t0 = time.perf_counter()
+        props = ex._proposals(logits.numpy(), deltas.numpy(), h, w)
+        prop_ms = (time.perf_counter() - t0) * 1e3
+        roi_kernels_ms = _profiled(torch, lambda: ex._roi_stage(
+            feat, props))[0]
+        P = cfg.pooler_resolution
+        from meme_challenge_tpu_torch.extract.ops import roi_pool_device
+
+        pooled = roi_pool_device(feat[0], props, 1.0 / cfg.anchor_base,
+                                 (P, P))
+        head_ms, head_host = device_ms(
+            lambda: ex.model.roi_forward(pooled), iters=3, reps=3)
+        cls_prob = ex._roi_stage(feat, props)["cls_prob"].cpu().numpy()
+    boxes = props / scale
+    mc = {}
+    for impl in ("native_batched", "device"):
+        ex.nms_impl = impl
+        ex._max_conf(cls_prob, boxes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex._max_conf(cls_prob, boxes)
+        mc[impl] = (time.perf_counter() - t0) * 1e3
+    ex.nms_impl = "native_batched"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ex.extract(img)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    prof = _profiled(torch, lambda: ex.extract(img))
+    prof_line = ("profiled extract: wall %.1f ms, kernels %.1f ms, device "
+                 "idle share %.3f, %d launches; top device operations (ms, "
+                 "calls): %s" % (prof[2]["wall"], prof[0],
+                                 1.0 - prof[0] / prof[2]["wall"], prof[1],
+                                 prof[2]["top"])
+                 if prof[0] is not None else "profiler unavailable")
+    log(on_card(
+        "breakdown extract (one 600 x 800 image, mode 1, fp32 blob, %d "
+        "proposals): wall %.1f ms; host preprocessing %.1f ms; backbone + "
+        "RPN %.2f ms device (%.1f ms host issue); proposal stage %.1f ms "
+        "host; ROI stage: kernels %s ms (ROIPool + heads), heads alone "
+        "%.2f ms device (%.1f ms host issue); max_conf native_batched "
+        "%.1f ms, device %.1f ms; %s; peak memory %.2f GiB above the "
+        "weights" % (
+            len(props), wall_ms, pre_ms, bb_ms, bb_host, prop_ms,
+            "%.2f" % roi_kernels_ms if roi_kernels_ms is not None
+            else "not measured",
+            head_ms, head_host, mc["native_batched"], mc["device"],
+            prof_line, peak)))
+
+
+def _profiled(torch, fn):
+    """(kernel ms, launches, {"wall", "top"}) of one call of ``fn`` under
+    torch.profiler; (None, None, {}) where the profiler gives no trace
+    (informational)."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows, n_launch = [], 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                rows.append((getattr(e, "self_device_time_total", getattr(
+                    e, "self_cuda_time_total", 0.0)) / 1e3, e.count, e.key))
+            elif "LaunchKernel" in e.key:
+                n_launch += e.count
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        if not rows:
+            raise RuntimeError("no device time in the trace")
+        return busy, n_launch, {"wall": wall, "top": "; ".join(
+            "%s %.2f x%d" % (k[:48], t, c) for t, c, k in rows[:6])}
+    except Exception as e:  # informational: a missing trace fails nothing
+        log("profiler unavailable (%s)" % e)
+        return None, None, {}
+
+
+def visualize_phase(torch, work: str, cfg, images) -> None:
+    """Phase 12d: ``visualize_boxes`` through its CLI on 2 images, where
+    PIL and cv2 import: the ``*_annotated`` files exist and each one's box
+    count is the number of labels ``annotate_image`` returns for it."""
+    import contextlib
+    import dataclasses
+    import io
+
+    try:
+        import cv2  # noqa: F401
+        import PIL  # noqa: F401
+    except ImportError as e:
+        log("extraction 12d: visualizer not run: %s" % e)
+        return
+    from meme_challenge_tpu_torch.extract.convert_detector import (
+        load_detector_weights,
+    )
+    from meme_challenge_tpu_torch.extract.detector import FeatureExtractor
+    from meme_challenge_tpu_torch.tools import visualize_boxes
+
+    root = os.path.join(work, "extraction")
+    img_dir, out_dir = os.path.join(root, "vis_img"), os.path.join(root,
+                                                                   "vis")
+    stems = _write_pngs(img_dir, images[:2])
+    weights = os.path.join(root, "bua_random.pt")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        visualize_boxes.main(["--image-dir", img_dir, "--out-dir", out_dir,
+                              "--weights", weights])
+    wall = time.time() - t0
+    printed = dict(re.findall(r"(\S+): boxes=(\d+)", buf.getvalue()))
+    vcfg = dataclasses.replace(cfg, conf_thresh=0.4, min_boxes=10,
+                               max_boxes=20)
+    ex = FeatureExtractor(vcfg, load_detector_weights(weights, vcfg),
+                          device="cuda")
+    labels = {}
+    for stem in stems:
+        dest = os.path.join(out_dir, stem + "_annotated.png")
+        img = cv2.imread(os.path.join(img_dir, stem + ".png"))
+        _, out = visualize_boxes.annotate_image(ex, img)
+        labels[stem] = visualize_boxes.box_labels(out["info"])
+        if not (os.path.isfile(dest) and printed.get(dest) == str(
+                len(labels[stem])) == str(out["num_bbox"])):
+            fail("extraction 12d: %s missing or its boxes %s differ from "
+                 "annotate_image's %d labels" % (dest, printed.get(dest),
+                                                 len(labels[stem])))
+    log(on_card("extraction 12d: visualize_boxes CLI %.1f s, 2 annotated "
+                "images, labels %s" % (
+                    wall, {k: v[:3] + ["..."] for k, v in labels.items()})))
+
+
 def main(argv) -> None:
     if not os.path.isdir(PACKAGE):
         fail("meme_challenge_tpu_torch/ not found beside chip_smoke.py: run "
@@ -2734,6 +3268,16 @@ def main(argv) -> None:
         timed("text steps", text_step_phase, torch, synth, A)
         text_launches = timed("text/oscar CLIs", text_cli_phase, torch,
                               work, synth, passlog, A)
+        det_cfg, det_state, det_images = detector_setup(torch)
+        timed("extraction card vs CPU", extract_check_phase, torch, det_cfg,
+              det_state, det_images)
+        ext_launches = timed("extraction CLI", extract_cli_phase, torch,
+                             work, det_cfg, det_state, det_images, synth, A)
+        timed("extraction time", extract_time_phase, torch, det_cfg,
+              det_state, det_images)
+        timed("extraction visualizer", visualize_phase, torch, work,
+              det_cfg, det_images)
+        del det_state
     timed("ensemble", ensemble_scale_phase, torch)
     # the recipe's kernel and dtype also ran the crossval and fold-parallel
     # phases: their launches count with the train phase's
@@ -2755,6 +3299,12 @@ def main(argv) -> None:
     # versions
     for key, n in text_launches.items():
         log("launches %s[%s]: + Oscar CLI phase %d = %d"
+            % (key[0], key[1], n, launches[key] + n))
+        launches[key] += n
+    # phase 12b's UNITER forward on the extracted features counts too;
+    # 12a and 12c run no attention kernel
+    for key, n in ext_launches.items():
+        log("launches %s[%s]: + extraction hand-off forward %d = %d"
             % (key[0], key[1], n, launches[key] + n))
         launches[key] += n
 

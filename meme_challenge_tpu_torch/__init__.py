@@ -11,7 +11,7 @@ nothing of it, nor JAX. Subpackages mirror the JAX package's names:
 - ``ops``     hand-written CUDA kernels for Hopper (fused attention forward
               and backward), each with its plain PyTorch version, and their
               build; the batched AUROC and fold mixing of the ensemble
-              search (plain torch).
+              search, box IoU and the per-class NMS (plain torch).
 - ``models``  UNITER (``nn.Module``s in the reference's torch key layout),
               the text-only ``MODEL_DICT`` backbones, Oscar, and the
               checkpoint converters.
@@ -20,13 +20,19 @@ nothing of it, nor JAX. Subpackages mirror the JAX package's names:
               the CLIs: ``train_uniter``, ``pretrain_uniter``,
               ``train_pure_text``, ``train_hatespeech``,
               ``train_object_text``, ``train_oscar``.
+- ``extract``  the bottom-up-attention detector (Caffe ResNet-101, RPN,
+              ROI heads), its host C++ ops, the extraction CLI and the
+              checkpoint converters.
 - ``ensemble``  the ensemble weight search over per-fold CSVs.
+- ``tools``   host tools: Memotion prep, misclassification, feature-file
+              export, the box visualizer.
 - ``utils``   synthetic dataset fixtures.
 
 It runs the reference's README recipe for UNITER-base (fold splits, a
 fine-tune per fold, the ensemble search), serves a checkpoint, pretrains
-UNITER, and trains the text-only baselines and Oscar; feature extraction
-and multi-device runs follow the queue in ROADMAP.md.
+UNITER, trains the text-only baselines and Oscar, and extracts region
+features from images; detector training and multi-device runs follow the
+queue in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

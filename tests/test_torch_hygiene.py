@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -68,7 +69,16 @@ def test_importing_every_port_module_loads_no_jax():
             "meme_challenge_tpu_torch.train.train_pure_text",
             "meme_challenge_tpu_torch.train.train_hatespeech",
             "meme_challenge_tpu_torch.train.train_object_text",
-            "meme_challenge_tpu_torch.train.train_oscar"} <= set(mods)
+            "meme_challenge_tpu_torch.train.train_oscar",
+            "meme_challenge_tpu_torch.extract.native",
+            "meme_challenge_tpu_torch.extract.ops",
+            "meme_challenge_tpu_torch.extract.resnet",
+            "meme_challenge_tpu_torch.extract.detector",
+            "meme_challenge_tpu_torch.extract.convert_detector",
+            "meme_challenge_tpu_torch.extract.extract_features",
+            "meme_challenge_tpu_torch.ops.iou",
+            "meme_challenge_tpu_torch.ops.nms",
+            "meme_challenge_tpu_torch.tools.visualize_boxes"} <= set(mods)
     # modules an interpreter start-up hook may preload are not the port's
     code = (
         "import importlib, json, sys\n"
@@ -169,3 +179,74 @@ def test_text_and_oscar_clis_default_to_cuda_and_raise_without_card(cli,
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="--device cpu"):
         module.main(argv)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("extract.extract_features", ["--image-dir", "unused", "--out-dir",
+                                  "unused"]),
+    ("tools.visualize_boxes", ["--image-dir", "unused", "--weights",
+                               "unused.pth"]),
+])
+def test_extraction_clis_default_to_cuda_and_raise_without_card(tool, argv):
+    """The extraction CLI and the box visualizer run on CUDA unless asked
+    for the CPU; without a card they raise before they read any file."""
+    import importlib
+
+    module = importlib.import_module("meme_challenge_tpu_torch." + tool)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        module.main(argv)
+
+
+def test_resolve_device_pins_fp32_on_cuda(monkeypatch):
+    """A cuda device turns TF32 off for matmuls and for cuDNN (on by
+    default), so the detector's convolutions compute in fp32."""
+    from meme_challenge_tpu_torch.core.device import resolve_device
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    resolve_device("cpu")
+    assert torch.backends.cudnn.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device("cuda") == torch.device("cuda")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _tree_state(root):
+    state = {}
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d not in (".git", "build", "__pycache__",
+                                                ".pytest_cache",
+                                                "chiprun_out")]
+        for f in files:
+            path = os.path.join(dirpath, f)
+            st = os.stat(path)
+            state[path] = (st.st_size, st.st_mtime_ns)
+    return state
+
+
+def test_native_library_builds_only_under_build():
+    """Building the port's native ops leaves the JAX package's tracked
+    native/libbua_ops.so byte for byte as it was and writes nothing outside
+    build/."""
+    import hashlib
+
+    from meme_challenge_tpu_torch.extract import native
+
+    tracked = os.path.join(ROOT, "native", "libbua_ops.so")
+
+    def digest():
+        with open(tracked, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before, tree = digest(), _tree_state(ROOT)
+    path = native.build_library(force=True)
+    assert digest() == before
+    assert _tree_state(ROOT) == tree
+    assert os.path.isfile(path)
+    assert os.path.commonpath([path, os.path.join(ROOT, "build")]) == \
+        os.path.join(ROOT, "build")
+    assert native.nms(np.array([[0, 0, 10, 10]], np.float32),
+                      np.array([0.9], np.float32), 0.3).tolist() == [0]
