@@ -140,6 +140,27 @@ Phases, each of which makes the script exit non-zero if it fails:
    backbone + RPN, proposal stage, ROI stage, ``max_conf`` both ways, idle
    share, launches, top device operations, peak memory); (d) the
    ``visualize_boxes`` CLI on 2 images, where PIL and cv2 import.
+13. Detector training at ``DetectorConfig()`` (phase 12's weights and
+   images; SGD momentum 0.9 with the global-norm clip at 5, lr
+   DET_TRAIN_LR): (a) one train step card vs CPU, fp32 with TF32 off, the
+   blob cut to 320 × 448 for the CPU's sake, the same three draws: anchor
+   and proposal labels equal, the clip and class-argmax decisions with
+   margin, the five loss parts within 1e-5 relative and every gradient
+   within 1e-4 of its leaf's largest magnitude on the card's ReLU
+   decisions (at most 1e-5 of them may flip; the CPU's own pass printed
+   beside it); ROIAlign's gradient card vs CPU at 64 proposals within
+   1e-5; (b) ``train_detector`` through its CLI on 8 train and 4 val PNGs
+   of 600 × 800: 2 epochs with finite losses at every step, the
+   ``detector.pth`` dump before each evaluation, finite mAP and weighted
+   mAP, ``--eval-only`` on the dump giving the last epoch's metrics,
+   ``evaluate`` alone in s an image, and ``extract_features --weights`` on
+   the dump; (c) one step's breakdown on a fixed 600 × 800 batch: wall and
+   host-issue ms, device ms behind a sleep, kernels and the top device
+   operations, idle share, launches, no host sync inside a step
+   (``set_sync_debug_mode``), ROIAlign's forward and backward and their
+   peak, the clip + SGD update, peak memory, images/s, the loss
+   trajectory, and whether two identical gradient passes give the same
+   bits (printed).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3185,6 +3206,547 @@ def visualize_phase(torch, work: str, cfg, images) -> None:
                     wall, {k: v[:3] + ["..."] for k, v in labels.items()})))
 
 
+# ----------------------------------------------------- 13. detector training
+
+DET_TRAIN_TOL = 1e-5   # the loss parts, card vs CPU, relative
+DET_GRAD_TOL = 1e-4    # each gradient, of its leaf's largest magnitude
+DET_ALIGN_TOL = 1e-5   # ROIAlign's gradient, of its largest magnitude
+# 13a's blob: the CPU side runs a full-width train step, so the image's
+# shortest side is cut from 600 to 320 (longest 448); widths are not cut
+DET_CHECK_SIZE = (320, 448)
+DET_TRAIN_STEPS = (3, 20)   # 13c: warm-up steps, measured steps
+# The random stack's pooled features run to the thousands: one clipped SGD
+# step at the CLI's default lr 1e-3 moves the box deltas by tens and the
+# box losses jump; at 1e-5 they fall from step to step (13c prints them)
+DET_TRAIN_LR = 1e-5
+
+
+def _det_record(cfg, img, seed: int, n_gt: int = 20) -> dict:
+    """A VG record of ``img`` with ``n_gt`` random boxes, classes and
+    attributes (a third without one) from ``seed``, in image
+    coordinates."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    h, w = img.shape[:2]
+    xy = rng.rand(n_gt, 2) * [w * 0.7, h * 0.7]
+    wh = (rng.rand(n_gt, 2) * 0.25 + 0.05) * [w, h]
+    attrs = rng.randint(0, cfg.num_attributes - 1, n_gt)
+    attrs[rng.rand(n_gt) < 0.33] = -1
+    return {"image_id": seed, "file_name": "", "height": h, "width": w,
+            "boxes": np.concatenate([xy, xy + wh], 1).astype(np.float32),
+            "classes": rng.randint(0, cfg.num_classes - 1, n_gt).astype(
+                np.int32),
+            "attrs": attrs.astype(np.int32)}
+
+
+def _det_batch(cfg, img, seed: int) -> dict:
+    """One training batch of ``img`` through the port's VG loader (no
+    flip), max_gt 64."""
+    from meme_challenge_tpu_torch.extract.vg_data import VGDetectionLoader
+
+    rec = _det_record(cfg, img, seed)
+    loader = VGDetectionLoader([rec], cfg, max_gt=64, is_train=False,
+                               image_reader=lambda r: img)
+    batch = loader._one(rec)
+    del batch["image_id"]
+    return batch
+
+
+def _det_train_step(torch, cfg, state, device: str):
+    from meme_challenge_tpu_torch.extract.detector import BUADetector
+    from meme_challenge_tpu_torch.extract.detector_train import (
+        make_detector_train_step,
+    )
+    from meme_challenge_tpu_torch.extract.train_detector import (
+        detector_optimizer,
+    )
+
+    model = BUADetector(cfg)
+    model.load_state_dict(state, strict=True)
+    model.to(device)
+    return make_detector_train_step(model, cfg,
+                                    detector_optimizer(DET_TRAIN_LR))
+
+
+def _n_anchors(step, batch) -> int:
+    """The anchors of ``batch``'s res4 map (stride 16, each stride-2 stage
+    rounding up)."""
+    h, w = batch["images"].shape[1:3]
+    return math.ceil(h / 16) * math.ceil(w / 16) * step.num_anchors
+
+
+class _ReluTape:
+    """Stands in for ``torch.nn.functional`` in the detector's modules
+    (``extract/resnet.py``, ``extract/detector.py``): it records each
+    ReLU's decision (input > 0), in call order, or replays recorded ones
+    (the input times the recorded mask, which routes the gradient as that
+    mask does), counting the elements whose own decision differs. A forward
+    on the CPU replaying the card's decisions takes the card's branch at
+    the few pre-activations that the two devices round to opposite signs;
+    everything else is unchanged."""
+
+    def __init__(self, functional):
+        self._F, self.masks, self.replay = functional, [], False
+        self.pos = self.flips = self.seen = 0
+
+    def __getattr__(self, name):
+        return getattr(self._F, name)
+
+    def relu(self, x):
+        if not self.replay:
+            self.masks.append((x > 0).cpu())
+            return self._F.relu(x)
+        mask = self.masks[self.pos].to(x.device)
+        self.pos += 1
+        self.flips += int(((x > 0) != mask).sum())
+        self.seen += mask.numel()
+        return x * mask
+
+
+def _det_side(torch, step, batch, draws, tape=None):
+    """The losses, every gradient and the decisions of one pass of
+    ``step`` on ``draws`` (with ``tape`` standing in for the detector's
+    functional module, when given)."""
+    from meme_challenge_tpu_torch.extract import detector, resnet
+    from meme_challenge_tpu_torch.extract.detector_train import loss_values
+
+    saved = detector.F, resnet.F
+    if tape is not None:
+        detector.F = resnet.F = tape
+    try:
+        t0 = time.perf_counter()
+        dev = step.device
+        losses, aux = step.losses(batch, tuple(d.to(dev) for d in draws),
+                                  aux=True)
+        names = list(step.params)
+        grads = torch.autograd.grad(sum(losses.values()),
+                                    [step.params[k] for k in names])
+        out = {"losses": loss_values(losses),
+               "grads": {k: g.cpu() for k, g in zip(names, grads)},
+               "aux": {k: v.detach().cpu() for k, v in aux.items()},
+               "s": time.perf_counter() - t0}
+    finally:
+        detector.F, resnet.F = saved
+    return out
+
+
+def det_train_check_phase(torch, cfg, state, images) -> None:
+    """Phase 13a: one train step card vs CPU at ``DetectorConfig()``'s
+    widths (the blob cut to DET_CHECK_SIZE), fp32 with TF32 off, on the same
+    weights and the same three draws. The decisions first: anchor and
+    proposal labels equal, the same probabilities below the 1e-9 clip, the
+    top-2 gap of ``cls_prob[:, 1:]`` above twice the card-vs-CPU
+    difference. Then the five loss parts within DET_TRAIN_TOL relative, and
+    every parameter's gradient within DET_GRAD_TOL of its leaf's largest
+    magnitude. The ReLUs decide too: activations run to the thousands, and
+    a few pre-activations round to opposite signs on the two devices
+    (each such element routes its gradient differently), so the CPU pass
+    that the gradients are held to replays the card's ReLU decisions
+    (``_ReluTape``; at most one element in 10^5 may flip). The CPU's own
+    pass is printed beside it. ROIAlign's gradient at the step's 64
+    proposals on the card against the CPU within DET_ALIGN_TOL."""
+    import dataclasses
+    import torch.nn.functional as F
+
+    from meme_challenge_tpu_torch.extract.ops import roi_align
+
+    cut = dataclasses.replace(cfg, min_size=DET_CHECK_SIZE[0],
+                              max_size=DET_CHECK_SIZE[1])
+    batch = _det_batch(cut, images[0], DET_SEED)
+    cpu_step = _det_train_step(torch, cfg, state, "cpu")
+    draws = cpu_step.draw(_n_anchors(cpu_step, batch),
+                          torch.Generator().manual_seed(DET_SEED))
+    tape = _ReluTape(F)
+    card = _det_side(torch, _det_train_step(torch, cfg, state, "cuda"),
+                     batch, draws, tape)
+    torch.cuda.synchronize()
+    own = _det_side(torch, cpu_step, batch, draws)
+    tape.replay = True
+    cpu = _det_side(torch, cpu_step, batch, draws, tape)
+    if tape.pos != len(tape.masks):
+        fail("detector training 13a: the CPU pass made %d ReLU calls, the "
+             "card's %d" % (tape.pos, len(tape.masks)))
+    for k in ("anchor_labels", "proposal_labels"):
+        if not torch.equal(card["aux"][k], cpu["aux"][k]):
+            fail("detector training 13a: %s differ between the card and "
+                 "the CPU" % k)
+    margins = {}
+    for k in ("cls_prob", "attr_prob"):
+        a, b = card["aux"][k], cpu["aux"][k]
+        if not torch.equal(a < 1e-9, b < 1e-9):
+            fail("detector training 13a: %s below the 1e-9 clip differs"
+                 % k)
+        top = b[:, 1:].sort(dim=1).values
+        margins[k] = (float((top[:, -1] - top[:, -2]).min()),
+                      float((a - b).abs().max()))
+    if margins["cls_prob"][0] <= 2 * margins["cls_prob"][1]:
+        fail("detector training 13a: class argmax without margin %s"
+             % (margins,))
+
+    def worst(side):
+        err = {k: _det_rel(card["grads"][k], g)
+               for k, g in side["grads"].items()}
+        return max(err.values()), sorted(err.items(),
+                                         key=lambda kv: -kv[1])[:3]
+
+    loss_err = {k: abs(card["losses"][k] - v) / max(abs(v), 1e-30)
+                for k, v in cpu["losses"].items()}
+    grad_max, grad_worst = worst(cpu)
+    own_max, own_worst = worst(own)
+    fg = int((cpu["aux"]["proposal_labels"] > 0).sum())
+    log(on_card(
+        "detector training 13a: blob %s, %d anchors (%d positive), %d "
+        "proposals (%d foreground); losses %s; card vs CPU: losses %s (tol "
+        "%g relative); %d gradients against the CPU on the card's ReLU "
+        "decisions (%d of %d elements flipped), worst %s (tol %g of each "
+        "leaf's largest); against the CPU's own decisions, worst %s; top-2 "
+        "gap / difference cls_prob %.3g / %.3g, attr_prob %.3g / %.3g; step "
+        "+ gradients card %.2f s, CPU %.2f s" % (
+            tuple(batch["images"].shape), len(cpu["aux"]["anchor_labels"]),
+            int((cpu["aux"]["anchor_labels"] == 1).sum()),
+            len(cpu["aux"]["proposal_labels"]), fg,
+            {k: float("%.6g" % v) for k, v in cpu["losses"].items()},
+            {k: float("%.3g" % v) for k, v in loss_err.items()},
+            DET_TRAIN_TOL, len(cpu["grads"]), tape.flips, tape.seen,
+            [(k, float("%.3g" % v)) for k, v in grad_worst], DET_GRAD_TOL,
+            [(k, float("%.3g" % v)) for k, v in own_worst],
+            margins["cls_prob"][0], margins["cls_prob"][1],
+            margins["attr_prob"][0], margins["attr_prob"][1],
+            card["s"], own["s"])))
+    if tape.flips > 1e-5 * tape.seen:
+        fail("detector training 13a: %d of %d ReLU decisions differ"
+             % (tape.flips, tape.seen))
+    if max(loss_err.values()) > DET_TRAIN_TOL:
+        fail("detector training 13a: losses card vs CPU %s" % loss_err)
+    if grad_max > DET_GRAD_TOL:
+        fail("detector training 13a: gradients card vs CPU %s" % grad_worst)
+
+    # ROIAlign's gradient at the step's proposals, on one res4 map
+    gen = torch.Generator().manual_seed(DET_SEED + 1)
+    feat = torch.randn((1024, 20, 28), generator=gen)
+    props = cpu["aux"]["proposals"]
+    P = cfg.pooler_resolution
+    cot = torch.randn((len(props), 1024, P, P), generator=gen)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        f = feat.to(dev).requires_grad_()
+        out = roi_align(f, props.to(dev), 1.0 / cfg.anchor_base, (P, P))
+        got[dev] = torch.autograd.grad(out, f, cot.to(dev))[0].cpu()
+    err = _det_rel(got["cuda"], got["cpu"])
+    log(on_card("detector training 13a: ROIAlign gradient at %d proposals "
+                "on a [1024, 20, 28] map, card vs CPU %.3g (tol %g)"
+                % (len(props), err, DET_ALIGN_TOL)))
+    if err > DET_ALIGN_TOL:
+        fail("detector training 13a: ROIAlign gradient card vs CPU %g"
+             % err)
+
+
+def _vg_json(path: str, cfg, records, split: str) -> None:
+    """A COCO-format VG table of ``records`` (``_det_record``'s fields; the
+    PNG files ``split/NNNNN.png`` under the image root, in order), the
+    categories and attributes 1-based as the VG json has them."""
+    images_t, anns = [], []
+    for i, rec in enumerate(records):
+        iid = rec["image_id"]
+        images_t.append({"id": iid, "file_name": "%s/%05d.png" % (split,
+                                                                 i + 1),
+                         "height": rec["height"], "width": rec["width"]})
+        for j, (box, c, a) in enumerate(zip(rec["boxes"], rec["classes"],
+                                            rec["attrs"])):
+            x1, y1, x2, y2 = (float(v) for v in box)
+            ann = {"id": iid * 1000 + j, "image_id": iid,
+                   "bbox": [x1, y1, x2 - x1, y2 - y1],
+                   "category_id": int(c) + 1}
+            if a >= 0:
+                ann["attribute"] = [int(a) + 1]
+            anns.append(ann)
+    with open(path, "w") as f:
+        json.dump({"images": images_t, "annotations": anns,
+                   "categories": [{"id": k + 1, "name": str(k)}
+                                  for k in range(cfg.num_classes - 1)]}, f)
+
+
+def det_train_cli_phase(torch, work: str, cfg, state, images) -> None:
+    """Phase 13b: ``train_detector`` through its CLI on the card, from the
+    rescaled random weights as a torch file: 8 train and 4 val PNGs of
+    600 × 800 (the val ground truth is the initial weights' own best
+    detections), 2 epochs, ``--eval-images 4``; finite losses at every log,
+    ``detector.pth`` written before each epoch's evaluation, finite mAP and
+    weighted mAP; ``--eval-only`` on the dump reproducing the last epoch's
+    metrics, and ``evaluate`` alone timed in s an image; ``extract_features
+    --weights <dump> --mode 1`` on two images (the hand-off to
+    extraction)."""
+    import logging
+
+    import numpy as np
+
+    from meme_challenge_tpu_torch.extract import (
+        extract_features,
+        train_detector,
+    )
+    from meme_challenge_tpu_torch.extract.detector import FeatureExtractor
+
+    root = os.path.join(work, "detector_train")
+    _write_pngs(os.path.join(root, "train"), images[:8])
+    _write_pngs(os.path.join(root, "val"), images[4:8])
+    train_json = os.path.join(root, "train.json")
+    val_json = os.path.join(root, "val.json")
+    _vg_json(train_json, cfg, [_det_record(cfg, img, i + 1)
+                               for i, img in enumerate(images[:8])], "train")
+    # the val ground truth: the initial weights' own 10 best mode-2
+    # detections an image, so that the mAP is not zero
+    ex = FeatureExtractor(cfg, state, device="cuda")
+    val = []
+    for i, img in enumerate(images[4:8]):
+        det = ex.extract(img, mode=2)
+        val.append({"image_id": 101 + i, "height": img.shape[0],
+                    "width": img.shape[1], "boxes": det["bbox"][:10],
+                    "classes": det["cls_prob"][:10, 1:].argmax(1),
+                    "attrs": np.full(10, -1)})
+    del ex
+    _vg_json(val_json, cfg, val, "val")
+    init = os.path.join(root, "init.pth")
+    torch.save(state, init)
+    out = os.path.join(root, "out")
+    dump = os.path.join(out, "detector.pth")
+    common = ["--val-json", val_json, "--image-root", root, "--out-dir", out,
+              "--eval-images", "4"]
+
+    saved = []
+
+    class DumpWatch(logging.Handler):
+        """At each epoch's evaluation log: is the epoch's dump there?"""
+
+        def emit(self, record):
+            if record.getMessage().startswith("epoch "):
+                saved.append(os.path.isfile(dump)
+                             and os.stat(dump).st_mtime_ns)
+
+    logger = logging.getLogger(train_detector.__name__)
+    watch = DumpWatch()
+    logger.addHandler(watch)
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    try:
+        t0 = time.time()
+        history = train_detector.main(common + [
+            "--train-json", train_json, "--weights", init, "--epochs", "2",
+            "--log-every", "1", "--lr", str(DET_TRAIN_LR)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        logger.removeHandler(watch)
+        logger.setLevel(level)
+    steps = [it for it, _ in history["losses"]]
+    finite = all(np.isfinite(v) for _, d in history["losses"]
+                 for v in d.values())
+    totals = [round(sum(d.values()), 4) for _, d in history["losses"]]
+    log(on_card("detector training 13b: train_detector CLI, 2 epochs of 8 "
+                "images (600 x 800) at lr %g, eval on 4: %.1f s; %d steps "
+                "logged, "
+                "finite %s; total loss by step %s; epochs %s; dump before "
+                "each evaluation %s" % (
+                    DET_TRAIN_LR, wall, len(steps), finite, totals,
+                    history["epochs"],
+                    [bool(s) for s in saved])))
+    if (steps != list(range(1, 17)) or not finite or len(saved) != 2
+            or not all(saved) or saved[0] == saved[1]
+            or len(history["epochs"]) != 2
+            or not all(np.isfinite(e[k]) for e in history["epochs"]
+                       for k in ("mAP", "weighted_mAP"))):
+        fail("detector training 13b: the CLI run went wrong: steps %s, "
+             "epochs %s, dumps %s" % (steps, history["epochs"], saved))
+    t0 = time.time()
+    metrics = train_detector.main(common + ["--eval-only", "--weights",
+                                            dump])
+    eval_wall = time.time() - t0
+    last = history["epochs"][-1]
+    same = all(metrics[k] == last[k] for k in ("mAP", "weighted_mAP"))
+    log(on_card("detector training 13b: --eval-only on the dump: mAP %.6g, "
+                "weighted %.6g in %.1f s (the last epoch's: %.6g, %.6g; "
+                "equal %s)" % (metrics["mAP"], metrics["weighted_mAP"],
+                               eval_wall, last["mAP"], last["weighted_mAP"],
+                               same)))
+    if not same:
+        fail("detector training 13b: --eval-only gives %s, the last epoch "
+             "%s" % ({k: metrics[k] for k in ("mAP", "weighted_mAP")},
+                     last))
+    # evaluation alone: the dump's weights in an extractor already made,
+    # one image first to warm it up
+    from meme_challenge_tpu_torch.extract.convert_detector import (
+        load_detector_weights,
+    )
+    from meme_challenge_tpu_torch.extract.vg_data import load_vg_json
+
+    ex = FeatureExtractor(cfg, load_detector_weights(dump, cfg),
+                          device="cuda")
+    val_records = load_vg_json(val_json, root)
+    train_detector.evaluate(cfg, ex.model, val_records[:1], extractor=ex)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = train_detector.evaluate(cfg, ex.model, val_records, extractor=ex)
+    per_image = (time.perf_counter() - t0) / len(val_records)
+    del ex
+    log(on_card("detector training 13b: evaluate alone (mode-2 detection "
+                "and vg_eval) %.4f s an image over %d images; mAP %.6g" % (
+                    per_image, len(val_records), again["mAP"])))
+    if again["mAP"] != metrics["mAP"]:
+        fail("detector training 13b: evaluate gives mAP %g, --eval-only %g"
+             % (again["mAP"], metrics["mAP"]))
+    img_dir = os.path.join(root, "handoff_img")
+    stems = _write_pngs(img_dir, images[:2])
+    npz = os.path.join(root, "handoff_npz")
+    extract_features.main(["--image-dir", img_dir, "--out-dir", npz,
+                           "--weights", dump, "--mode", "1"])
+    boxes = []
+    for stem in stems:
+        path = os.path.join(npz, stem + ".npz")
+        if not os.path.isfile(path):
+            fail("detector training 13b: extract_features wrote no %s" % path)
+        z = np.load(path, allow_pickle=True)
+        k = int(z["num_bbox"])
+        if z["x"].shape != (k, 2048) or not np.isfinite(z["x"]).all():
+            fail("detector training 13b: %s holds x %s for %d boxes"
+                 % (path, z["x"].shape, k))
+        boxes.append(k)
+    log(on_card("detector training 13b: extract_features --weights "
+                "detector.pth --mode 1 on 2 images: boxes %s" % boxes))
+
+
+def det_train_time_phase(torch, cfg, state, images) -> None:
+    """Phase 13c: where a step's time goes, at ``DetectorConfig()`` on one
+    fixed 600 × 800 batch (64 proposals): DET_TRAIN_STEPS warm-up and
+    measured steps (wall and host-issue ms, images/s, the loss
+    trajectory), one profiled step (kernel ms, top device operations, idle
+    share, launches), host syncs inside a step (``set_sync_debug_mode``),
+    peak memory above the weights and the optimizer state, ROIAlign's
+    forward and backward ms and their peak, and whether two identical
+    gradient passes give the same bits (printed, not gated). One
+    ``breakdown detector_train`` line."""
+    import warnings
+
+    from meme_challenge_tpu_torch.core.seeding import dropout_generator
+    from meme_challenge_tpu_torch.extract.detector_train import loss_values
+    from meme_challenge_tpu_torch.extract.ops import roi_align
+
+    batch = _det_batch(cfg, images[0], DET_SEED)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    step = _det_train_step(torch, cfg, state, "cuda")
+    n_params = sum(p.numel() for p in step.params.values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before     # weights + trace
+    warm, n = DET_TRAIN_STEPS
+    traj = [step(batch, dropout_generator(DET_SEED, i, "cuda"))
+            for i in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    host = []
+    t0 = time.perf_counter()
+    for i in range(warm, warm + n):
+        t1 = time.perf_counter()
+        traj.append(step(batch, dropout_generator(DET_SEED, i, "cuda")))
+        host.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    values = [loss_values(l) for l in traj]
+    totals = [round(sum(v.values()), 4) for v in values]
+    if not all(math.isfinite(t) for t in totals):
+        fail("detector training 13c: non-finite losses %s" % totals)
+
+    # host syncs inside one step
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(batch, dropout_generator(DET_SEED, warm + n, "cuda"))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0][:80] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    prof = _profiled(torch, lambda: step(
+        batch, dropout_generator(DET_SEED, warm + n + 1, "cuda")))
+    # the step queued behind a sleep: device ms back to back, and the
+    # host's issue time while the card is busy (a hidden sync would hold
+    # the host until the sleep ends)
+    gen = dropout_generator(DET_SEED, 0, "cuda")
+    step_ms, step_host = device_ms(lambda: step(batch, gen), iters=5,
+                                   reps=3)
+
+    # ROIAlign alone at the step's shapes, and the determinism of a pass
+    draws = step.draw(_n_anchors(step, batch),
+                      dropout_generator(DET_SEED, 0, "cuda"))
+    losses, aux = step.losses(batch, draws, aux=True)
+    grads = [torch.autograd.grad(sum(step.losses(batch, draws).values()),
+                                 list(step.params.values()))
+             for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*grads))
+    del grads, losses
+    with torch.no_grad():
+        feat = step.model.backbone_rpn(
+            torch.from_numpy(batch["images"]).cuda().permute(0, 3, 1, 2)
+            .contiguous())[0][0]
+    f = feat.detach().requires_grad_()
+    props = aux["proposals"].detach()
+    P = cfg.pooler_resolution
+    cot = torch.ones((len(props), feat.shape[0], P, P), device="cuda")
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: roi_align(f, props, 1.0 / cfg.anchor_base,
+                                             (P, P)), iters=10, reps=3)[0]
+    both_ms = device_ms(lambda: torch.autograd.grad(
+        roi_align(f, props, 1.0 / cfg.anchor_base, (P, P)), f, cot),
+        iters=10, reps=3)[0]
+    torch.cuda.synchronize()
+    align_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(roi_align(f, props, 1.0 / cfg.anchor_base, (P, P)),
+                        f, cot)
+    torch.cuda.synchronize()
+    align_peak = (torch.cuda.max_memory_allocated() - align_base) / 2 ** 30
+    # clip + SGD momentum alone over every parameter (the step's last
+    # stage; zero gradients change nothing measured)
+    zeros = {k: torch.zeros_like(p) for k, p in step.params.items()}
+    opt_ms, opt_host = device_ms(lambda: step.optimizer.step(
+        step.params, zeros, step.opt_state), iters=5, reps=3)
+    prof_line = ("kernels %.1f ms, device idle share %.3f, %d launches; "
+                 "top device operations (ms, calls): %s" % (
+                     prof[0], 1.0 - prof[0] / prof[2]["wall"], prof[1],
+                     prof[2]["top"])
+                 if prof[0] is not None else "profiler unavailable")
+    log(on_card("detector training 13c: by step (%d warm-up + %d measured, "
+                "lr %g, one fixed batch, a generator a step): total %s; "
+                "rpn_box %s; roi_box %s" % (
+                    warm, n, DET_TRAIN_LR, totals,
+                    [round(v["rpn_box"], 4) for v in values],
+                    [round(v["roi_box"], 4) for v in values])))
+    log(on_card("detector training 13c: host syncs inside a step: %d %s; "
+                "two identical gradient passes bit-equal: %s" % (
+                    len(syncs), syncs[:3], same)))
+    log(on_card(
+        "breakdown detector_train (one 600 x 800 image, blob %s, %d "
+        "proposals, %.1f M parameters in %d tensors): wall %.1f ms a step "
+        "(%.2f images/s), host issue %.1f ms (median of %d); queued behind "
+        "a sleep: %.1f ms device a step, %.1f ms host issue while the card "
+        "is busy; profiled step: wall %s ms, %s; ROIAlign forward %.2f ms, "
+        "backward %.2f ms device, peak %.3f GiB for both above the map and "
+        "the cotangent; clip + SGD %.2f ms device (%.1f ms host "
+        "issue); peak %.2f GiB above the weights and the optimizer state "
+        "(%.2f GiB)" % (
+            tuple(batch["images"].shape), step.num_proposals, n_params / 1e6,
+            len(step.params), wall, 1e3 / wall, statistics.median(host), n,
+            step_ms, step_host,
+            "%.1f" % prof[2]["wall"] if prof[0] is not None else "n/a",
+            prof_line, fwd_ms, both_ms - fwd_ms, align_peak, opt_ms, opt_host,
+            peak, held / 2 ** 30)))
+    if syncs:
+        fail("detector training 13c: the step synchronizes with the host: "
+             "%s" % syncs[:3])
+
+
 def main(argv) -> None:
     if not os.path.isdir(PACKAGE):
         fail("meme_challenge_tpu_torch/ not found beside chip_smoke.py: run "
@@ -3277,6 +3839,12 @@ def main(argv) -> None:
               det_state, det_images)
         timed("extraction visualizer", visualize_phase, torch, work,
               det_cfg, det_images)
+        timed("detector training card vs CPU", det_train_check_phase, torch,
+              det_cfg, det_state, det_images)
+        timed("detector training CLI", det_train_cli_phase, torch, work,
+              det_cfg, det_state, det_images)
+        timed("detector training time", det_train_time_phase, torch,
+              det_cfg, det_state, det_images)
         del det_state
     timed("ensemble", ensemble_scale_phase, torch)
     # the recipe's kernel and dtype also ran the crossval and fold-parallel

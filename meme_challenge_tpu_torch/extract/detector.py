@@ -381,7 +381,9 @@ class FeatureExtractor:
     def __init__(self, cfg: DetectorConfig, state: Dict[str, torch.Tensor],
                  nms_impl: str = "native_batched", device="cuda"):
         """``state``: a ``BUADetector`` state dict (``init_detector(...)
-        .state_dict()``, ``convert_detector.load_detector_weights``).
+        .state_dict()``, ``convert_detector.load_detector_weights``), or a
+        live ``BUADetector``, used as it stands (detector training
+        evaluates its module without a copy of the weights).
         ``nms_impl``: strategy for the 1600-class selection NMS —
         "native_batched" (one C++ call, shared IoU matrix), "device"
         (ops/nms.py on ``device``), or "host_loop" (per-class C++ calls,
@@ -392,8 +394,11 @@ class FeatureExtractor:
         self.cfg = cfg
         self.device = resolve_device(str(device))
         self.nms_impl = nms_impl
-        self.model = BUADetector(cfg)
-        self.model.load_state_dict(state, strict=True)
+        if isinstance(state, nn.Module):
+            self.model = state
+        else:
+            self.model = BUADetector(cfg)
+            self.model.load_state_dict(state, strict=True)
         self.model.to(self.device).eval()
         self._pixel_mean = torch.from_numpy(PIXEL_MEAN_BGR).to(
             self.device)[None, :, None, None]

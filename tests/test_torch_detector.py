@@ -326,7 +326,8 @@ def assert_decision_margins(jx, tx, img):
                                rtol=1e-5, atol=1e-3)
 
     # the JAX ROI stage on exactly these R rows (its extract pads to 64)
-    x1, y1, bh, bw = roi_bin_quantize(props, 1.0 / cfg.anchor_base, (14, 14))
+    P = cfg.pooler_resolution
+    x1, y1, bh, bw = roi_bin_quantize(props, 1.0 / cfg.anchor_base, (P, P))
     jo = jx._roi_stage(jx.params, feat, jnp.asarray(x1), jnp.asarray(y1),
                        jnp.asarray(bh), jnp.asarray(bw))
     with torch.no_grad():

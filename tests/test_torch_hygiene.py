@@ -76,6 +76,10 @@ def test_importing_every_port_module_loads_no_jax():
             "meme_challenge_tpu_torch.extract.detector",
             "meme_challenge_tpu_torch.extract.convert_detector",
             "meme_challenge_tpu_torch.extract.extract_features",
+            "meme_challenge_tpu_torch.extract.vg_eval",
+            "meme_challenge_tpu_torch.extract.vg_data",
+            "meme_challenge_tpu_torch.extract.detector_train",
+            "meme_challenge_tpu_torch.extract.train_detector",
             "meme_challenge_tpu_torch.ops.iou",
             "meme_challenge_tpu_torch.ops.nms",
             "meme_challenge_tpu_torch.tools.visualize_boxes"} <= set(mods)
@@ -186,10 +190,13 @@ def test_text_and_oscar_clis_default_to_cuda_and_raise_without_card(cli,
                                   "unused"]),
     ("tools.visualize_boxes", ["--image-dir", "unused", "--weights",
                                "unused.pth"]),
+    ("extract.train_detector", ["--image-root", "unused", "--train-json",
+                                "unused.json"]),
 ])
 def test_extraction_clis_default_to_cuda_and_raise_without_card(tool, argv):
-    """The extraction CLI and the box visualizer run on CUDA unless asked
-    for the CPU; without a card they raise before they read any file."""
+    """The extraction CLI, the box visualizer and the detector-training CLI
+    run on CUDA unless asked for the CPU; without a card they raise before
+    they read any file."""
     import importlib
 
     module = importlib.import_module("meme_challenge_tpu_torch." + tool)
