@@ -27,7 +27,12 @@ Phases, each of which makes the script exit non-zero if it fails:
    a yardstick the port never calls (with its own error against the plain
    version), beside the least time the card could take (the bound; float32
    at three TF32 products a product). ptxas's registers, spills and shared
-   memory of every kernel are printed after the build.
+   memory of every kernel are printed after the build. The seed shard: both
+   kernels on a rank's slice of 2 folds (rows 4-12 of 16, heads 6-12 of 12,
+   as a data and a model axis of 2 give it), fp32 and bf16, dropout 0.1,
+   forward and backward against the plain version with the same shard, with
+   the zero positions of the plain version and of one launch on the whole
+   batch.
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
@@ -159,14 +164,31 @@ Phases, each of which makes the script exit non-zero if it fails:
    operations, idle share, launches, no host sync inside a step
    (``set_sync_debug_mode``), ROIAlign's forward and backward and their
    peak, the clip + SGD update, peak memory, images/s, the loss
-   trajectory, and whether two identical gradient passes give the same
-   bits (printed).
+   trajectory; the step's device ms with its determinism repair (cuDNN's
+   deterministic algorithms, scoped to the step's gradient pass) and
+   without it, in turns; a determinism diagnosis in a process of its own
+   (``--det-determinism``, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: the leaves
+   that differ between two identical gradient passes as the step ran
+   before the repair, with ``cudnn.deterministic``, and under
+   ``torch.use_deterministic_algorithms``, the operations that raises or
+   warns on, the kernels it swaps, ROIAlign's backward alone); then two
+   identical gradient passes of the step must give the same bits (gated).
+14. Multi-device, run right after 9b: (a) 9b's recipe through the CLI in
+   a process of its own under ``torchrun --standalone --nproc_per_node 1``
+   with ``--mesh_shape 1,1,1 --mesh_axes fold,data,model`` (an ``nccl``
+   group of one rank, the mesh path of ``parallel/``): every fold's CSVs
+   equal to 9b's plain ``--mesh_shape 1`` run's (ids, probabilities to the
+   last written digit), the ensemble CSVs written, each epoch's ms an
+   optimizer step of both runs side by side; (b)
+   ``parallel/dryrun.py --spawn 1`` on the card (the fold-parallel driver
+   of the dry run, content-checked CSVs, the ensemble search).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -571,6 +593,81 @@ def smem_rule_check(A) -> None:
     log("route rule: shared-memory formula and limits equal the kernels'")
 
 
+# a rank's slice of 2 folds at the main path's shapes: rows [4, 12) of 16
+# (a data axis of 2) and heads [6, 12) of 12 (a model axis of 2)
+SHARD_FOLDS, SHARD_ROWS, SHARD_HEADS = 2, (4, 12), (6, 12)
+
+
+def shard_kernel_checks(torch, A, gen) -> None:
+    """Phase 3, the seed shard (``ops.attention.SeedShard``): both kernels
+    on a rank's slice of SHARD_FOLDS folds of the main path's batch
+    (SHARD_ROWS of each fold's 16 rows, SHARD_HEADS of its 12 heads), fp32
+    and bf16, dropout 0.1: forward and backward against the plain version
+    with the same shard (TOL, the backward relative), the same zero
+    positions (one-hot v windows), and the slice of one launch on the whole
+    batch: the dropped positions of a rank are the whole run's."""
+    scale, rate = 1.0 / D ** 0.5, 0.1
+    F_ = SHARD_FOLDS
+    (r0, r1), (h0, h1) = SHARD_ROWS, SHARD_HEADS
+    rows = [f * B + r for f in range(F_) for r in range(r0, r1)]
+    shard = A.SeedShard(r0, B, h0, H)
+    for name, wrapper, plain in (
+            ("fused_attention", A.fused_attention, A.fused_attention_plain),
+            ("fused_attention_blocked", A.fused_attention_blocked,
+             A.fused_attention_blocked_plain)):
+        blocked = name.endswith("blocked")
+        n_seeds = A.blocked_seed_count(F_ * B, H, F_) if blocked else F_ * B
+        seed_map = A._seed_map(len(rows), h1 - h0, F_, shard, blocked)
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, bias = attention_inputs(torch, dtype, gen, F_ * B)
+            seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds,), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            part = [t[rows][:, h0:h1].contiguous() for t in (q, k, v)]
+            pbias = bias[rows].contiguous()
+            do = torch.randn(part[0].shape, generator=gen,
+                             device="cuda").to(q.dtype)
+            kw = dict(folds=F_, shard=shard)
+            out = wrapper(*part, pbias, scale, rate, seeds, **kw)
+            ref = plain(*part, pbias, scale, rate, seeds, **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            whole = wrapper(q, k, v, bias, scale, rate, seeds, folds=F_)
+            err_whole = (out.float() - whole[rows][:, h0:h1].float()).abs(
+            ).max().item()
+            got = kernel_grads(torch, lambda *a: wrapper(*a, **kw), *part,
+                               pbias, do, scale, rate, seeds)
+            ref_g = A.fused_attention_bwd_plain(*part, pbias, do, scale, rate,
+                                                seeds, seed_map)
+            rel_bwd = _rel_err(torch, got, ref_g)[1]
+            zeros_equal, zeros_whole = True, True
+            for c in (0, 64, 96):
+                probe = torch.zeros_like(v)
+                d_idx = torch.arange(D, device="cuda")
+                probe[:, :, c + d_idx, d_idx] = 1
+                pprobe = probe[rows][:, h0:h1].contiguous()
+                zk = wrapper(*part[:2], pprobe, pbias, scale, rate, seeds,
+                             **kw) == 0
+                zp = plain(*part[:2], pprobe, pbias, scale, rate, seeds,
+                           **kw) == 0
+                zw = wrapper(q, k, probe, bias, scale, rate, seeds,
+                             folds=F_)[rows][:, h0:h1] == 0
+                zeros_equal &= bool(torch.equal(zk, zp))
+                zeros_whole &= bool(torch.equal(zk, zw))
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            log(on_card(
+                "kernel %s %s seed shard (rows %d-%d of %d, heads %d-%d of "
+                "%d, %d folds): forward max_abs_err %.3g against the plain "
+                "version, %.3g against the whole launch's slice; backward "
+                "relative error %.3g (tol %g); zero_positions_equal=%s, "
+                "equal to the whole launch's=%s" % (
+                    name, dtype, r0, r1, B, h0, h1, H, F_, err, err_whole,
+                    rel_bwd, tol, zeros_equal, zeros_whole)))
+            if not (err <= tol and err_whole <= tol and rel_bwd <= tol
+                    and zeros_equal and zeros_whole):
+                fail("kernel %s %s with a seed shard disagrees" % (name,
+                                                                   dtype))
+
+
 def kernel_phase(torch) -> dict:
     from meme_challenge_tpu_torch.ops import attention as A
 
@@ -644,6 +741,7 @@ def kernel_phase(torch) -> dict:
                 library_ms_dropout=lib[rate], library_max_abs_err=lib_err,
                 bound_ms=bound_ms, bound_by=bound_by)
     results.update(bwd_kernel_phase(torch, A, gen))
+    shard_kernel_checks(torch, A, gen)
     for (name, dtype), r in results.items():
         if r["route"] != main_path_route(dtype):
             fail("%s %s took %s at the main path's shape"
@@ -1581,6 +1679,124 @@ def fold_kernel_checks(torch, A) -> None:
                 fail("fold-stacked kernel %s %s disagrees" % (name, dtype))
 
 
+def fold_cli_argv(synth: dict, run_dir: str) -> list:
+    """The arguments of phase 9b's fold-parallel recipe (full-width
+    UNITER-base, fp32, per-sample kernel, 2 epochs), writing into
+    ``run_dir``, without the mesh flags."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+
+    cfg_path = os.path.join(run_dir, "uniter.json")
+    with open(cfg_path, "w") as f:
+        json.dump(UniterConfig(use_pallas_attention=True).to_dict(), f)
+    return ["--data_path", synth["root"],
+            "--feature_path", synth["feature_dir"],
+            "--vocab_file", synth["vocab"], "--model_path", run_dir,
+            "--model_save_name", "cv.ckpt", "--uniter_config", cfg_path,
+            "--max_epoch", "2", "--num_folds", "-1", "--crossval_use_dev",
+            "--crossval_dev_size", "16", "--batch_size", "16",
+            "--gradient_accumulation", str(TRAIN_ACCUM),
+            "--confounder_repeat", "3", "--pos_wt", "1.8",
+            "--scheduler", "warmup_cosine", "--warmup_steps", "2",
+            "--lr", "3e-5", "--seed", "43"]
+
+
+def _step_ms(epochs: list, steps: list) -> list:
+    """ms an optimizer step, epoch by epoch, from (memes, s) and (steps,
+    micro-batches) records."""
+    return ["%.1f" % (1e3 * secs / n) for (_, secs), (n, _) in zip(epochs,
+                                                                  steps)]
+
+
+def _csv_diff(run_dir: str, ref_dir: str) -> tuple:
+    """(fold CSVs compared, the largest probability difference in units of
+    the CSVs' last written digit (1e-6), the rows that differ at all) of
+    ``run_dir``'s ``*_preds.csv`` against ``ref_dir``'s; the ids must be
+    equal, every file present."""
+    names = sorted(f for f in os.listdir(ref_dir) if f.endswith("_preds.csv"))
+    worst, rows = 0, 0
+    for f in names:
+        path = os.path.join(run_dir, f)
+        if not os.path.isfile(path):
+            fail("multi-device 14a: %s is missing" % path)
+        a, b = _read_csv(path), _read_csv(os.path.join(ref_dir, f))
+        if [r[0] for r in a] != [r[0] for r in b]:
+            fail("multi-device 14a: the ids of %s differ" % f)
+        diffs = [abs(round(float(x[1]) * 1e6) - round(float(y[1]) * 1e6))
+                 for x, y in zip(a, b)]
+        worst = max([worst] + diffs)
+        rows += sum(d > 0 for d in diffs)
+    return len(names), worst, rows
+
+
+def multidevice_phase(torch, work: str, synth: dict, passlog) -> None:
+    """Phase 14, right after 9b: (a) phase 9b's recipe through the CLI in a
+    process of its own under ``torchrun --standalone --nproc_per_node 1``
+    with ``--mesh_shape 1,1,1 --mesh_axes fold,data,model`` (an ``nccl``
+    group of one rank and the mesh path of ``parallel/``: DTensor shards,
+    the gathered resume file, the barriers, rank 0's ensemble). Every
+    fold's CSVs must equal 9b's plain ``--mesh_shape 1 --mesh_axes fold``
+    run's (ids, and the probabilities to their last written digit: the
+    recipe repeats bit for bit since the fold-stacked embedding lookups sum
+    their gradients in a fixed order). Each epoch's ms an optimizer step of
+    the two runs side by side (the collectives' overhead at world size 1).
+    (b) The dry run (``parallel/dryrun.py --spawn 1``) on the card."""
+    plain_ms = _step_ms(passlog.epochs, passlog.fold_steps)
+    run_dir = os.path.join(work, "multidevice")
+    os.makedirs(run_dir)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m",
+         "meme_challenge_tpu_torch.train.train_uniter",
+         *fold_cli_argv(synth, run_dir), "--mesh_shape", "1,1,1",
+         "--mesh_axes", "fold,data,model"],
+        env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT, capture_output=True,
+        text=True, timeout=900)
+    wall = time.time() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        fail("multi-device 14a: torchrun train_uniter rc %d:\n%s"
+             % (proc.returncode, text[-3000:]))
+    nccl_ms = _step_ms(
+        [(int(m.group(1)), float(m.group(2))) for m in re.finditer(
+            r"train epoch \d+: (\d+) memes in ([\d.]+) s", text)],
+        [(int(m.group(1)), 0) for m in re.finditer(
+            r"\[fold-parallel\] epoch \d+: (\d+) steps", text)])
+    group = re.search(r"process group: backend (\w+), world size (\d+), "
+                      r"mesh (\S+)", text)
+    if not group or group.group(1) != "nccl" or group.group(2) != "1":
+        fail("multi-device 14a: no nccl group of one rank in the log: %s"
+             % (group.group(0) if group else text[-2000:]))
+    n, worst, rows = _csv_diff(run_dir, os.path.join(work, "fold_parallel"))
+    ens = sorted(f for f in os.listdir(run_dir)
+                 if f.endswith("_ensemble.csv"))
+    log(on_card(
+        "multi-device 14a: torchrun, 1 process, %s group of %s rank, mesh "
+        "%s: %d fold CSVs against 9b's plain --mesh_shape 1 run, worst "
+        "probability difference %d units of 1e-6 in %d rows (gate: 0); %d "
+        "ensemble CSVs; command %.1f s; ms an optimizer step by epoch: nccl "
+        "world size 1 %s, plain (9b, in process) %s" % (
+            group.group(1), group.group(2), group.group(3), n, worst, rows,
+            len(ens), wall, nccl_ms, plain_ms)))
+    if worst > 0 or not n or len(ens) != 4:
+        fail("multi-device 14a: the CSVs differ from the plain run's (worst "
+             "%d units of 1e-6 in %d rows, ensemble CSVs %s)"
+             % (worst, rows, ens))
+
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "meme_challenge_tpu_torch.parallel.dryrun",
+         "--spawn", "1"], env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    ok = [ln for ln in proc.stdout.splitlines()
+          if ln.startswith("dryrun_multichip OK")]
+    log(on_card("multi-device 14b: dryrun --spawn 1 on the card in %.1f s: "
+                "%s" % (time.time() - t0, ok)))
+    if proc.returncode != 0 or not ok:
+        fail("multi-device 14b: the dry run failed (rc %d):\n%s"
+             % (proc.returncode, (proc.stdout + proc.stderr)[-3000:]))
+
+
 def fold_cli_phase(torch, work: str, synth: dict, passlog,
                    seq_epochs: list) -> dict:
     """Phase 9b: the crossval phase's recipe through the CLI with
@@ -1599,20 +1815,8 @@ def fold_cli_phase(torch, work: str, synth: dict, passlog,
     layers = UniterConfig().num_hidden_layers
     run_dir = os.path.join(work, "fold_parallel")
     os.makedirs(run_dir)
-    cfg_path = os.path.join(run_dir, "uniter.json")
-    with open(cfg_path, "w") as f:
-        json.dump(UniterConfig(use_pallas_attention=True).to_dict(), f)
-    argv = ["--data_path", synth["root"],
-            "--feature_path", synth["feature_dir"],
-            "--vocab_file", synth["vocab"], "--model_path", run_dir,
-            "--model_save_name", "cv.ckpt", "--uniter_config", cfg_path,
-            "--max_epoch", "2", "--num_folds", "-1", "--crossval_use_dev",
-            "--crossval_dev_size", "16", "--batch_size", "16",
-            "--gradient_accumulation", str(TRAIN_ACCUM),
-            "--confounder_repeat", "3", "--pos_wt", "1.8",
-            "--scheduler", "warmup_cosine", "--warmup_steps", "2",
-            "--lr", "3e-5", "--seed", "43",
-            "--mesh_shape", "1", "--mesh_axes", "fold"]
+    argv = fold_cli_argv(synth, run_dir) + ["--mesh_shape", "1",
+                                            "--mesh_axes", "fold"]
     passlog.clear()
     ea_runs = E.DEVICE_EA_RUNS["count"]
     reset_launches(A)
@@ -3614,6 +3818,110 @@ def det_train_cli_phase(torch, work: str, cfg, state, images) -> None:
                 "detector.pth --mode 1 on 2 images: boxes %s" % boxes))
 
 
+def det_determinism_diagnosis(torch) -> dict:
+    """Which operations of one detector gradient pass do not repeat: run in
+    a process of its own (``--det-determinism``, with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) on 13c's fixed 600 × 800 batch and
+    draws, so that the global settings it turns on reach no other phase.
+    Two identical passes are compared leaf by leaf (a) as the step runs,
+    (b) with cuDNN's deterministic algorithms (``cudnn.deterministic``,
+    ``benchmark`` off) and (c) under ``torch.use_deterministic_algorithms``:
+    first raising, which names the first operation with no deterministic
+    implementation, then warning, which names every such operation. The
+    kernels of one pass that (c) swaps for others are named too, as is
+    whether ROIAlign's backward alone repeats."""
+    import warnings
+
+    from meme_challenge_tpu_torch.core.seeding import dropout_generator
+    from meme_challenge_tpu_torch.extract.ops import roi_align
+
+    cfg, state, images = detector_setup(torch)
+    batch = _det_batch(cfg, images[0], DET_SEED)
+    step = _det_train_step(torch, cfg, state, "cuda")
+    draws = step.draw(_n_anchors(step, batch),
+                      dropout_generator(DET_SEED, 0, "cuda"))
+    names = list(step.params)
+
+    def grads():
+        return torch.autograd.grad(sum(step.losses(batch, draws).values()),
+                                   [step.params[k] for k in names])
+
+    def differing():
+        a, b = grads(), grads()
+        return [k for k, x, y in zip(names, a, b) if not torch.equal(x, y)]
+
+    def kernels():
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            grads()
+            torch.cuda.synchronize()
+        return {e.key[:90] for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+
+    def summary(keys):
+        return {"n": len(keys), "of": len(names), "first": keys[:6]}
+
+    out = {"default": summary(differing())}
+    k_default = kernels()
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out["cudnn_deterministic"] = summary(differing())
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+    # ROIAlign's backward alone at the step's proposals
+    with torch.no_grad():
+        feat = step.model.backbone_rpn(
+            torch.from_numpy(batch["images"]).cuda().permute(0, 3, 1, 2)
+            .float().contiguous())[0][0]
+    props = step.losses(batch, draws, aux=True)[1]["proposals"].detach()
+    P = cfg.pooler_resolution
+    cot = torch.randn((len(props), feat.shape[0], P, P), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    f = feat.detach().requires_grad_()
+    align = [torch.autograd.grad(roi_align(f, props, 1.0 / cfg.anchor_base,
+                                           (P, P)), f, cot)[0]
+             for _ in range(2)]
+    out["roi_align_backward_repeats"] = bool(torch.equal(*align))
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads()
+        out["raised"] = None
+    except RuntimeError as e:
+        out["raised"] = str(e).splitlines()[0][:300]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["deterministic_algorithms"] = summary(differing())
+    out["warned"] = sorted({str(w.message).splitlines()[0][:200]
+                            for w in caught})[:8]
+    k_det = kernels()
+    torch.use_deterministic_algorithms(False)
+    out["kernels_swapped_out"] = sorted(k_default - k_det)[:12]
+    out["kernels_swapped_in"] = sorted(k_det - k_default)[:12]
+    return out
+
+
+def det_determinism_subprocess() -> dict:
+    """:func:`det_determinism_diagnosis` in a child process with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS's deterministic workspace);
+    its settings end with it."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--det-determinism"], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("DET_DETERMINISM ")]
+    if proc.returncode != 0 or not lines:
+        fail("detector training 13c: the determinism diagnosis failed (rc "
+             "%d): %s" % (proc.returncode, proc.stderr[-2000:]))
+    return json.loads(lines[-1][len("DET_DETERMINISM "):])
+
+
 def det_train_time_phase(torch, cfg, state, images) -> None:
     """Phase 13c: where a step's time goes, at ``DetectorConfig()`` on one
     fixed 600 × 800 batch (64 proposals): DET_TRAIN_STEPS warm-up and
@@ -3622,8 +3930,11 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
     share, launches), host syncs inside a step (``set_sync_debug_mode``),
     peak memory above the weights and the optimizer state, ROIAlign's
     forward and backward ms and their peak, and whether two identical
-    gradient passes give the same bits (printed, not gated). One
-    ``breakdown detector_train`` line."""
+    gradient passes of the step give the same bits (gated), after the
+    determinism diagnosis in a process of its own
+    (:func:`det_determinism_diagnosis`, printed). The step's device ms with
+    its determinism repair (``deterministic_cudnn``) and without it, in
+    turns. One ``breakdown detector_train`` line."""
     import warnings
 
     from meme_challenge_tpu_torch.core.seeding import dropout_generator
@@ -3677,14 +3988,30 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
     step_ms, step_host = device_ms(lambda: step(batch, gen), iters=5,
                                    reps=3)
 
-    # ROIAlign alone at the step's shapes, and the determinism of a pass
+    # the step without its determinism repair (cuDNN's default backward
+    # algorithms), in turns with the repaired step
+    from meme_challenge_tpu_torch.extract import detector_train
+
+    scoped = detector_train.deterministic_cudnn
+    turns = {"repaired": [], "default": []}
+    for name in ("repaired", "default", "default", "repaired"):
+        detector_train.deterministic_cudnn = (
+            scoped if name == "repaired" else contextlib.nullcontext)
+        try:
+            turns[name].append(device_ms(lambda: step(batch, gen), iters=5,
+                                         reps=3)[0])
+        finally:
+            detector_train.deterministic_cudnn = scoped
+
+    # ROIAlign alone at the step's shapes, and the determinism of a pass:
+    # the diagnosis names what does not repeat, then the gate
+    diag = det_determinism_subprocess()
     draws = step.draw(_n_anchors(step, batch),
                       dropout_generator(DET_SEED, 0, "cuda"))
     losses, aux = step.losses(batch, draws, aux=True)
-    grads = [torch.autograd.grad(sum(step.losses(batch, draws).values()),
-                                 list(step.params.values()))
-             for _ in range(2)]
-    same = all(torch.equal(a, b) for a, b in zip(*grads))
+    grads = [step.gradients(batch, draws)[1] for _ in range(2)]
+    differ = [k for k in grads[0] if not torch.equal(grads[0][k],
+                                                     grads[1][k])]
     del grads, losses
     with torch.no_grad():
         feat = step.model.backbone_rpn(
@@ -3723,15 +4050,33 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
                     warm, n, DET_TRAIN_LR, totals,
                     [round(v["rpn_box"], 4) for v in values],
                     [round(v["roi_box"], 4) for v in values])))
+    log(on_card("detector training 13c: determinism diagnosis (one "
+                "gradient pass twice, in a process of its own): leaves that "
+                "differ as the step ran before its repair %d of %d (%s); "
+                "with cudnn.deterministic %d; under "
+                "use_deterministic_algorithms %d, raised %s, warned %s; "
+                "kernels it swaps out %s, in %s; ROIAlign's backward alone "
+                "repeats: %s" % (
+                    diag["default"]["n"], diag["default"]["of"],
+                    diag["default"]["first"][:3],
+                    diag["cudnn_deterministic"]["n"],
+                    diag["deterministic_algorithms"]["n"], diag["raised"],
+                    diag["warned"], diag["kernels_swapped_out"],
+                    diag["kernels_swapped_in"],
+                    diag["roi_align_backward_repeats"])))
     log(on_card("detector training 13c: host syncs inside a step: %d %s; "
-                "two identical gradient passes bit-equal: %s" % (
-                    len(syncs), syncs[:3], same)))
+                "two identical gradient passes of the step bit-equal: %s "
+                "(%d of %d leaves differ)" % (
+                    len(syncs), syncs[:3], not differ, len(differ),
+                    len(step.params))))
     log(on_card(
         "breakdown detector_train (one 600 x 800 image, blob %s, %d "
         "proposals, %.1f M parameters in %d tensors): wall %.1f ms a step "
         "(%.2f images/s), host issue %.1f ms (median of %d); queued behind "
         "a sleep: %.1f ms device a step, %.1f ms host issue while the card "
-        "is busy; profiled step: wall %s ms, %s; ROIAlign forward %.2f ms, "
+        "is busy; device ms a step with the determinism repair %s, without "
+        "it %s (in turns); profiled step: wall %s ms, %s; ROIAlign forward "
+        "%.2f ms, "
         "backward %.2f ms device, peak %.3f GiB for both above the map and "
         "the cotangent; clip + SGD %.2f ms device (%.1f ms host "
         "issue); peak %.2f GiB above the weights and the optimizer state "
@@ -3739,12 +4084,17 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
             tuple(batch["images"].shape), step.num_proposals, n_params / 1e6,
             len(step.params), wall, 1e3 / wall, statistics.median(host), n,
             step_ms, step_host,
+            ["%.2f" % t for t in turns["repaired"]],
+            ["%.2f" % t for t in turns["default"]],
             "%.1f" % prof[2]["wall"] if prof[0] is not None else "n/a",
             prof_line, fwd_ms, both_ms - fwd_ms, align_peak, opt_ms, opt_host,
             peak, held / 2 ** 30)))
     if syncs:
         fail("detector training 13c: the step synchronizes with the host: "
              "%s" % syncs[:3])
+    if differ:
+        fail("detector training 13c: two identical gradient passes differ "
+             "in %d leaves: %s" % (len(differ), differ[:4]))
 
 
 def main(argv) -> None:
@@ -3758,6 +4108,9 @@ def main(argv) -> None:
         fail("torch.cuda.is_available() is false: this script needs a card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--det-determinism" in argv:
+        log("DET_DETERMINISM " + json.dumps(det_determinism_diagnosis(torch)))
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -3816,6 +4169,8 @@ def main(argv) -> None:
         timed("fold-parallel kernels", fold_kernel_checks, torch, A)
         fold_launches = timed("fold-parallel CLI", fold_cli_phase, torch,
                               work, synth, passlog, cv_epochs)
+        timed("multi-device", multidevice_phase, torch, work, synth,
+              passlog)
         timed("fold-parallel grad", fold_grad_check, torch, synth)
         timed("fold-parallel steps", fold_step_phase, torch, synth)
         timed("pretrain heads", pretrain_heads_check, torch, synth, A)

@@ -8,6 +8,8 @@ nothing of it, nor JAX. Subpackages mirror the JAX package's names:
 - ``data``    WordPiece tokenizer, static-shape MemeDataset + BatchLoader,
               the crossval fold splits, the pretraining batchers, the
               Twitter hate-speech and object-text datasets.
+- ``parallel`` fold-parallel crossval and the device mesh
+              (``torch.distributed``), and its dry run.
 - ``ops``     hand-written CUDA kernels for Hopper (fused attention forward
               and backward), each with its plain PyTorch version, and their
               build; the batched AUROC and fold mixing of the ensemble
@@ -30,9 +32,11 @@ nothing of it, nor JAX. Subpackages mirror the JAX package's names:
 
 It runs the reference's README recipe for UNITER-base (fold splits, a
 fine-tune per fold, the ensemble search), serves a checkpoint, pretrains
-UNITER, trains the text-only baselines and Oscar, and extracts region
-features from images; detector training and multi-device runs follow the
-queue in ROADMAP.md.
+UNITER, trains the text-only baselines and Oscar, extracts region features
+from images and trains the detector. Multi-device runs go through
+``torchrun``, one process a card: ``parallel/`` splits the crossval folds,
+each fold's batch and the encoder over a ``torch.distributed`` mesh
+(``train_uniter --mesh_shape 4,2 --mesh_axes fold,data``).
 """
 
 __version__ = "0.1.0"

@@ -42,11 +42,12 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
                            device)
 
 
-def fold_dropout_generators(seed: int, num_folds: int, step: int,
-                            device) -> list:
-    """The dropout generators of optimizer step ``step`` of every fold of a
-    crossval seeded ``seed``: fold f's is the one a sequential run of that
-    fold (seeded ``fold_seed(seed, f)``) draws from at that step, the
-    counterpart of ``fold_in(prng_key(fold_seed(seed, f)), step)``."""
+def fold_dropout_generators(seed: int, folds, step: int, device) -> list:
+    """The dropout generators of optimizer step ``step`` of ``folds`` (a
+    fold count: all of them; or the fold indices) of a crossval seeded
+    ``seed``: fold f's is the one a sequential run of that fold (seeded
+    ``fold_seed(seed, f)``) draws from at that step, the counterpart of
+    ``fold_in(prng_key(fold_seed(seed, f)), step)``."""
+    folds = range(folds) if isinstance(folds, int) else folds
     return [dropout_generator(fold_seed(seed, f), step, device)
-            for f in range(num_folds)]
+            for f in folds]

@@ -14,6 +14,20 @@ Matching and sampling keep the JAX package's static shapes (thresholds
 over sorted scores, no dynamic index sets), so a step issues no host sync:
 its losses stay on the device until the caller reads them.
 
+The step trains every parameter of the detector: each FrozenBN weight and
+bias and the stem too (327 tensors at ``DetectorConfig()``), as the JAX
+step's ``value_and_grad`` over the whole tree does. The reference's
+detectron2 recipe freezes them (FREEZE_AT 3); neither package does.
+
+Repeatability: on a card, cuDNN's default backward algorithms for the
+convolutions (``dgrad_engine``, ``wgrad_alg0_engine``) accumulate in an
+order that changes from run to run, so two identical gradient passes gave
+different bits. The step's gradient pass runs under
+:func:`deterministic_cudnn` (cuDNN's deterministic algorithms, no
+autotuning), scoped to the pass: other paths of the process keep their
+algorithms. ROIAlign's backward (autograd's sorted
+``index_put_(accumulate=True)``) repeats as it is.
+
 Randomness: where JAX draws from ``jax.random.split(rng, 3)``, the step
 draws from an explicit ``torch.Generator`` on its device, in JAX's order:
 the RPN sampling uniforms (one per anchor), the ROI sampling uniforms (one
@@ -23,6 +37,7 @@ given, so a step can be held to JAX's value for value on JAX's own draws.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import numpy as np
@@ -200,6 +215,19 @@ def _log_prob(prob: Tensor) -> Tensor:
     return torch.log(prob.clamp(1e-9, 1.0))
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, and no autotuning, inside the
+    block; the process's previous settings are restored after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 class DetectorTrainStep:
     """The full detector train step: backbone + RPN losses, the static
     proposal set, ROIAlign on res4, the ROI heads and their losses, and one
@@ -322,7 +350,7 @@ class DetectorTrainStep:
                  ) -> Dict[str, Tensor]:
         """One optimizer step on ``batch``, drawing from ``generator``.
         Returns the losses, detached and still on the device."""
-        return self._update(self.losses(batch, generator))
+        return self._update(batch, generator)
 
     def step_with_draws(self, batch, rpn_uniform: Tensor,
                         roi_uniform: Tensor, jitter: Tensor
@@ -330,14 +358,23 @@ class DetectorTrainStep:
         """One optimizer step on the three given draws (:meth:`draw`)."""
         draws = tuple(self._upload(t) for t in (rpn_uniform, roi_uniform,
                                                 jitter))
-        return self._update(self.losses(batch, draws))
+        return self._update(batch, draws)
 
-    def _update(self, losses: Dict[str, Tensor]) -> Dict[str, Tensor]:
-        total = sum(losses.values())
-        names = list(self.params)
-        grads = torch.autograd.grad(total, [self.params[n] for n in names])
-        self.optimizer.step(self.params, dict(zip(names, grads)),
-                            self.opt_state)
+    def gradients(self, batch, draws
+                  ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+        """The losses of ``batch`` on ``draws`` (as :meth:`losses`) and the
+        gradient of their sum by every parameter, under
+        :func:`deterministic_cudnn`: the same inputs give the same bits."""
+        with deterministic_cudnn():
+            losses = self.losses(batch, draws)
+            names = list(self.params)
+            grads = torch.autograd.grad(sum(losses.values()),
+                                        [self.params[n] for n in names])
+        return losses, dict(zip(names, grads))
+
+    def _update(self, batch, draws) -> Dict[str, Tensor]:
+        losses, grads = self.gradients(batch, draws)
+        self.optimizer.step(self.params, grads, self.opt_state)
         return {k: v.detach() for k, v in losses.items()}
 
 

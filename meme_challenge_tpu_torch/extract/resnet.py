@@ -3,7 +3,7 @@
 The port of ``meme_challenge_tpu/extract/resnet.py``. Parity target:
 ``build_bua_resnet_backbone`` of the reference subrepo
 (configs/bua-caffe/*.yaml: DEPTH 101/152, OUT_FEATURES ["res4"],
-RES5_DILATION 2, FREEZE_AT 3), the Caffe-era Faster R-CNN layout:
+RES5_DILATION 2), the Caffe-era Faster R-CNN layout:
 
 - conv1 7×7/2 + BN + ReLU + maxpool 3×3/2
 - res2 (3 blocks, 256), res3 (4/8 blocks, 512), res4 (23/36 blocks, 1024)
@@ -11,8 +11,12 @@ RES5_DILATION 2, FREEZE_AT 3), the Caffe-era Faster R-CNN layout:
 - res5 (3 blocks, 2048, dilation 2) lives in the ROI head, applied per
   region after ROI pooling.
 
-BatchNorm is a frozen affine weight/bias (detectron2 ``FrozenBN``; the Caffe
-checkpoints bake the running statistics into it). Modules run in NCHW, and
+BatchNorm is an affine weight/bias with no running statistics (detectron2
+``FrozenBN``; the Caffe checkpoints bake the statistics into it). The
+reference's detectron2 recipe freezes it and the stem (FREEZE_AT 3); the
+detector train step (``detector_train.py``) does not: it differentiates and
+updates every parameter, these included, as the JAX package's step does.
+Modules run in NCHW, and
 their parameters carry detectron2's key layout
 (``stem.conv1.weight``, ``stem.conv1.norm.{weight,bias}``,
 ``res4.22.conv2.weight``, ``res2.0.shortcut.norm.bias``): the norm is a
@@ -32,7 +36,8 @@ RESNET_STAGES = {
 
 
 class FrozenBN(nn.Module):
-    """Affine-only normalization (Caffe BN folded into weight/bias)."""
+    """Affine-only normalization (Caffe BN folded into weight/bias); both
+    are parameters that the detector train step trains."""
 
     def __init__(self, features: int):
         super().__init__()

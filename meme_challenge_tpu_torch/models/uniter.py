@@ -36,6 +36,17 @@ what ``meme_uniter_params_to_torch`` writes (the ``uniter_model.`` trunk, the
   all folds with F in the kernel's batch axis. Fold f's dropout draws from
   its own generator, in the order and shapes a single MemeUniter draws, so
   fold f of the stack equals the single model given that generator.
+- A FoldStack can be one rank's part of a run over a mesh
+  (``parallel/fold_parallel.py``): its folds, the rows of each fold's
+  micro-batch that :class:`ShardedGenerators` name (a ``data`` axis), and
+  with a :class:`ModelSplit` the Megatron column/row split of the encoder's
+  products, the vocabulary rows of the word embeddings and the output
+  features of ``img_linear`` (a ``model`` axis): an all-reduce after each
+  row-split product and after the masked embedding lookup, an all-gather
+  after ``img_linear``. Every dropout draw is made at the whole run's
+  shape and sliced, and the attention kernels hash the global pair
+  (``ops.attention.SeedShard``), so the rank's masks are the slices of the
+  one-process run's.
 - :class:`UniterForPretraining` (JAX models/uniter.py:527-716) puts the
   MLM, MRFR, ITM and MRC heads on the trunk under the reference's
   pretraining keys; the MLM and MRFR decoders are the word embedding table
@@ -45,9 +56,11 @@ from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
@@ -58,6 +71,7 @@ from torch.utils.checkpoint import (
 
 from meme_challenge_tpu_torch.core.config import UniterConfig
 from meme_challenge_tpu_torch.ops.attention import (
+    SeedShard,
     blocked_seed_count,
     fused_attention,
     fused_attention_blocked,
@@ -134,15 +148,36 @@ def softmax_lowp(scores: torch.Tensor) -> torch.Tensor:
     return _SoftmaxLowp.apply(scores)
 
 
-def _draw(fn, shape, generator: Generators) -> torch.Tensor:
+class ShardedGenerators(list):
+    """One generator a fold, for a rank that holds rows ``[row0, row0 + n)``
+    of each fold's micro-batch of ``rows`` (a ``data`` mesh axis): every
+    draw is made at the whole micro-batch's shape and the rank keeps its
+    rows, so its masks are the one-process run's."""
+
+    def __init__(self, generators, row0: int, rows: int):
+        super().__init__(generators)
+        self.row0, self.rows = row0, rows
+
+
+def _draw(fn, shape, generator: Generators,
+          heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``fn(shape, generator)``; with one generator per fold, each fold's
-    slice (``shape[1:]``) from its own generator, stacked on the fold axis."""
+    slice (``shape[1:]``) from its own generator, stacked on the fold axis.
+    A fold's draw has the whole micro-batch's rows (:class:`ShardedGenerators`)
+    and, with ``heads = (head0, total)``, all ``total`` heads in dim 2; the
+    rank's rows and heads are sliced from it."""
     if isinstance(generator, torch.Generator):
         return fn(tuple(shape), generator)
     if len(generator) != shape[0]:
         raise ValueError("%d generators for %d folds"
                          % (len(generator), shape[0]))
-    return torch.stack([fn(tuple(shape[1:]), g) for g in generator])
+    full, index = list(shape[1:]), [slice(None)] * (len(shape) - 1)
+    row0 = getattr(generator, "row0", 0)
+    full[0] = getattr(generator, "rows", shape[1])
+    index[0] = slice(row0, row0 + shape[1])
+    if heads is not None:
+        full[1], index[1] = heads[1], slice(heads[0], heads[0] + shape[2])
+    return torch.stack([fn(tuple(full), g)[tuple(index)] for g in generator])
 
 
 def bernoulli_dropout(x: torch.Tensor, rate: float,
@@ -159,7 +194,9 @@ def bernoulli_dropout(x: torch.Tensor, rate: float,
 
 
 def threshold_dropout(x: torch.Tensor, rate: float, generator: Generators,
-                      bits8: bool = False) -> torch.Tensor:
+                      bits8: bool = False,
+                      heads: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """The JAX encoder's integer-threshold dropout (models/uniter.py:284-302
     there): uint32 words kept iff ``bits >= rate·2³²``, scaled by
     1/(1 − rate); with ``bits8`` uint8 words kept iff ``bits >= k``,
@@ -175,7 +212,7 @@ def threshold_dropout(x: torch.Tensor, rate: float, generator: Generators,
         high, dtype, eff = 1 << 32, torch.int64, rate
     bits = _draw(lambda shape, g: torch.randint(
         0, high, shape, generator=g, device=x.device, dtype=dtype),
-        x.shape, generator)
+        x.shape, generator, heads)
     return torch.where(bits >= k, x / (1.0 - eff), x.new_zeros(())).to(x.dtype)
 
 
@@ -328,19 +365,27 @@ class BertLayer(nn.Module):
 
 
 def _attention(cfg: UniterConfig, q, k, v, bias32, scale, dtype, attn_rate,
-               generator: Generators, folds: int = 1):
+               generator: Generators, folds: int = 1,
+               heads: Optional[Tuple[int, int]] = None):
     """The encoder's attention core on ``[folds·B, H, S, D]`` heads (the
     JAX encoder's three branches, models/uniter.py:317-356 there). With one
     generator per fold, each fold's dropout (the kernel's seeds, or the
-    plain branch's threshold masks) comes from its own generator."""
+    plain branch's threshold masks) comes from its own generator; a rank's
+    rows (:class:`ShardedGenerators`) and heads ``heads = (head0, total)``
+    draw the whole run's dropout and take their slice."""
     bits8 = cfg.dropout_bits_dtype == "uint8"
     if cfg.use_pallas_attention:
         b = q.shape[0] // folds
+        row0, rows = (getattr(generator, "row0", 0),
+                      getattr(generator, "rows", b))
+        head0, n_heads = heads or (0, q.shape[1])
+        shard = (SeedShard(row0, rows, head0, n_heads)
+                 if (rows, n_heads) != (b, q.shape[1]) else None)
         if cfg.pallas_blocked:
             kernel = fused_attention_blocked
-            n_seed = blocked_seed_count(b, q.shape[1])
+            n_seed = blocked_seed_count(rows, n_heads)
         else:
-            kernel, n_seed = fused_attention, b
+            kernel, n_seed = fused_attention, rows
         seeds = None
         if attn_rate > 0.0:
             def draw(shape, g):
@@ -349,9 +394,11 @@ def _attention(cfg: UniterConfig, q, k, v, bias32, scale, dtype, attn_rate,
 
             seeds = (draw((folds * n_seed,), generator)
                      if isinstance(generator, torch.Generator)
-                     else _draw(draw, (folds, n_seed), generator).reshape(-1))
+                     else torch.stack([draw((n_seed,), g)
+                                       for g in generator]).reshape(-1))
         return kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                      bias32, scale, attn_rate, seeds, folds=folds).to(dtype)
+                      bias32, scale, attn_rate, seeds, folds=folds,
+                      shard=shard).to(dtype)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if cfg.attention_score_dtype == "bfloat16":
         # bf16 S^2 storage, softmax math in fp32 (softmax_lowp)
@@ -363,7 +410,7 @@ def _attention(cfg: UniterConfig, q, k, v, bias32, scale, dtype, attn_rate,
         # per-fold masks: the fold axis leads
         probs = threshold_dropout(
             probs.reshape((folds, -1) + probs.shape[1:]), attn_rate,
-            generator, bits8).reshape(probs.shape)
+            generator, bits8, heads).reshape(probs.shape)
     else:
         probs = threshold_dropout(probs, attn_rate, generator, bits8)
     return torch.matmul(probs.float(), v.float()).to(dtype)
@@ -796,6 +843,69 @@ def init_meme_uniter(config: UniterConfig, n_classes: int, device,
     return model.eval()
 
 
+@dataclass(frozen=True)
+class ModelSplit:
+    """A rank's part of a ``model`` mesh axis of ``size`` ranks: its
+    ``rank`` on the axis, the axis's process ``group``, and the dim each
+    split parameter of the fold-stacked state is cut along (``dims``: 1 the
+    output features of an ``[F, out, in]`` weight, its bias, or the vocab
+    rows of ``word_embeddings``; 2 the input features of a row-split
+    weight). Parameters it does not name are whole on every rank."""
+    group: object
+    rank: int
+    size: int
+    dims: Dict[str, int]
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group
+    (the input of a column-split product, Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The sum over the group forward (a row-split product's partial
+    outputs, Megatron's g); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """The ranks' slices of the last dim, concatenated in rank order;
+    the backward keeps this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        ctx.rank, ctx.width = rank, x.shape[-1]
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.width
+        return g[..., ctx.rank * w:(ctx.rank + 1) * w], None, None
+
+
 def _fold_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
     """A per-fold ``[F, H]`` vector as ``[F, 1, ..., H]``, broadcasting
     against a fold-stacked tensor of ``ndim`` dimensions."""
@@ -814,12 +924,17 @@ class FoldStack:
     ``nn.Linear`` layers as ``baddbmm``), attention takes the F·B samples in
     one kernel launch (``folds=F``), so a forward's launches do not grow
     with F except for the per-fold dropout draws.
+
+    ``split``: the rank's part of a ``model`` mesh axis (:class:`ModelSplit`;
+    ``params`` then hold its slices of the split leaves).
     """
 
     def __init__(self, config: UniterConfig, n_classes: int,
-                 params: Dict[str, torch.Tensor]):
+                 params: Dict[str, torch.Tensor],
+                 split: Optional[ModelSplit] = None):
         self.config, self.n_classes = config, n_classes
         self.params = params
+        self.split = split
         self.folds = int(next(iter(params.values())).shape[0])
         for p in params.values():
             if p.shape[0] != self.folds:
@@ -863,14 +978,28 @@ class FoldStack:
 
     # ------------------------------------------------------------ the layers
 
+    def _split_dim(self, name: str) -> Optional[int]:
+        return None if self.split is None else self.split.dims.get(name)
+
     def _lin(self, x: torch.Tensor, name: str,
              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``x [F, ..., in]`` through fold f's linear layer ``name``: with
         ``dtype`` the encoder's ``_linear`` (product, then bias, each
-        rounded to ``dtype``), else ``nn.Linear`` (bias in the product)."""
+        rounded to ``dtype``), else ``nn.Linear`` (bias in the product).
+        A column-split layer gives this rank's output features; a row-split
+        one takes its input features and sums the partial products over the
+        model group before the bias."""
         w, b = self.params[name + ".weight"], self.params[name + ".bias"]
+        split = self._split_dim(name + ".weight")
+        if split == 1:
+            x = _CopyToGroup.apply(x, self.split.group)
         x2 = x.reshape(x.shape[0], -1, x.shape[-1])
-        if dtype is None:
+        if split == 2:
+            y = torch.bmm(x2, (w if dtype is None else w.to(dtype))
+                          .transpose(1, 2))
+            y = _ReduceFromGroup.apply(y, self.split.group)
+            y = y + (b if dtype is None else b.to(dtype)).unsqueeze(1)
+        elif dtype is None:
             y = torch.baddbmm(b.unsqueeze(1), x2, w.transpose(1, 2))
         else:
             y = (torch.bmm(x2, w.to(dtype).transpose(1, 2))
@@ -886,12 +1015,31 @@ class FoldStack:
 
     def _embed(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         """Fold f's rows of table ``name`` ``[F, V, H]`` for ``ids``
-        ``[F, ...]``: one lookup in the flattened ``[F·V, H]`` table."""
+        ``[F, ...]``: one lookup in the flattened ``[F·V, H]`` table. A
+        vocab-split table holds rows ``[rank·V, (rank + 1)·V)``: ids
+        outside them look up zeros, and the sum over the model group gives
+        every row.
+
+        The lookup is an index (``table[ids]``), not ``F.embedding``: on a
+        card, the embedding backward of more than 3 072 ids (F·B·S of a
+        fold-stacked batch) accumulates with atomics, in an order that
+        changes from run to run; the index's backward sorts the ids and
+        sums each row in a fixed order."""
         table = self.params[name + ".weight"]
         F_, V = table.shape[:2]
+        ids = ids.long()
+        split = self._split_dim(name + ".weight")
+        if split == 1:
+            ids = ids - self.split.rank * V
+            inside = (ids >= 0) & (ids < V)
+            ids = torch.where(inside, ids, 0)
         offset = (torch.arange(F_, device=ids.device) * V).reshape(
             (F_,) + (1,) * (ids.dim() - 1))
-        return F.embedding(ids.long() + offset, table.reshape(F_ * V, -1))
+        out = table.reshape(F_ * V, -1)[ids + offset]
+        if split == 1:
+            out = torch.where(inside[..., None], out, out.new_zeros(()))
+            out = _ReduceFromGroup.apply(out, self.split.group)
+        return out
 
     def _text(self, input_ids, position_ids, gen) -> torch.Tensor:
         p = "uniter_model.embeddings."
@@ -908,8 +1056,21 @@ class FoldStack:
             "uniter_model.embeddings.token_type_embeddings",
             torch.ones(img_feat.shape[:3], dtype=torch.long,
                        device=img_feat.device))
-        im = self._ln(self._lin(img_feat.float(), p + "img_linear"),
-                      p + "img_layer_norm", torch.float32)
+        name = p + "img_linear"
+        if self._split_dim(name + ".weight") == 1:
+            # the weight's output features split, its bias whole (JAX
+            # splits img_linear_kernel alone): the rank's features of the
+            # product, gathered, then the bias
+            w, b = self.params[name + ".weight"], self.params[name + ".bias"]
+            x = img_feat.float()
+            im = torch.bmm(x.reshape(x.shape[0], -1, x.shape[-1]),
+                           w.transpose(1, 2))
+            im = (_GatherFromGroup.apply(im, self.split.group,
+                                         self.split.rank)
+                  + b.unsqueeze(1)).reshape(x.shape[:-1] + (b.shape[1],))
+        else:
+            im = self._lin(img_feat.float(), name)
+        im = self._ln(im, p + "img_layer_norm", torch.float32)
         pos = self._ln(self._lin(img_pos_feat.float(), p + "pos_linear"),
                        p + "pos_layer_norm", torch.float32)
         x = self._ln(im + pos + type_emb, p + "LayerNorm",
@@ -923,14 +1084,20 @@ class FoldStack:
         p_hid = cfg.hidden_dropout_prob
         bits8 = cfg.dropout_bits_dtype == "uint8"
         dtype = compute_dtype(cfg)
-        F_, B, S, H = x.shape
-        q, k, v = (_split_heads(self._lin(x, p + "attention.self." + n,
-                                          dtype).reshape(F_ * B, S, H),
-                                cfg.num_attention_heads)
+        F_, B, S, _ = x.shape
+        # a model split holds heads [head0, head0 + n_heads) of the layer's
+        q, k, v = (self._lin(x, p + "attention.self." + n, dtype)
                    for n in ("query", "key", "value"))
+        width = q.shape[-1]
+        n_heads = width // cfg.head_dim
+        heads = None
+        if n_heads != cfg.num_attention_heads:
+            heads = (self.split.rank * n_heads, cfg.num_attention_heads)
+        q, k, v = (_split_heads(t.reshape(F_ * B, S, width), n_heads)
+                   for t in (q, k, v))
         ctx = _merge_heads(_attention(
             cfg, q, k, v, bias32, 1.0 / math.sqrt(cfg.head_dim), dtype,
-            attn_rate, gen, folds=F_)).reshape(F_, B, S, H)
+            attn_rate, gen, folds=F_, heads=heads)).reshape(F_, B, S, width)
         attn_out = threshold_dropout(
             self._lin(ctx, p + "attention.output.dense", dtype), p_hid, gen,
             bits8)
@@ -957,7 +1124,10 @@ class FoldStack:
         if use_dropout and generators is None:
             raise ValueError("dropout (deterministic=False) draws from one "
                              "torch.Generator a fold; pass generators=")
-        gen = list(generators) if use_dropout else None
+        gen = None
+        if use_dropout:  # a ShardedGenerators keeps its rows
+            gen = (generators if isinstance(generators, list)
+                   else list(generators))
         attn_rate = cfg.attention_probs_dropout_prob if use_dropout else 0.0
         input_ids, img_feat = batch.get("input_ids"), batch.get("img_feat")
         if input_ids is None:

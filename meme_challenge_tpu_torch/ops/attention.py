@@ -42,8 +42,17 @@ recomputes them.
   Per-sample seeds are the folds' ``[B]`` seeds concatenated. The pair
   block is ``_largest_block(B·H)`` of one fold and the seeds are
   ``F × blocked_seed_count(B, H)``, fold-major, so no block, seed or hash
-  index straddles two folds. The kernels need no change: ``seed_group`` is
+  index straddles two folds. The kernels need no change: the seed group is
   a launch argument.
+
+- ``shard=SeedShard(...)`` runs a slice of each fold's (sample, head) pairs
+  with the dropout of the run that holds them all: a rank of a ``data``
+  mesh axis holds some rows of each fold's micro-batch, a rank of a
+  ``model`` axis some heads. Pair ``(b, h)`` of the launch is hashed as its
+  global pair ``(row0 + b)·heads + head0 + h`` of its fold: the seed and the
+  in-block index come from that pair, and the pair block is the one of the
+  whole fold (``_largest_block(rows·heads)``), so the dropped positions
+  equal the whole run's slice (``csrc/attention_common.cuh: SeedMap``).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, forward and backward;
 ``ROUTE_LAUNCHES`` the same launches by (wrapper, route).
@@ -51,7 +60,7 @@ recomputes them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -160,6 +169,46 @@ def _fold_block(batch: int, num_heads: int, folds: int) -> int:
     return _largest_block(_fold_batch(batch, folds) * num_heads)
 
 
+class SeedShard(NamedTuple):
+    """The slice of each fold's (sample, head) pairs that a launch holds:
+    its B / folds rows a fold are rows ``[row0, row0 + B / folds)`` of the
+    fold's ``rows``, its H heads are heads ``[head0, head0 + H)`` of
+    ``heads``. The launch takes the seeds of the whole run: ``folds × rows``
+    per sample, ``blocked_seed_count(folds × rows, heads, folds)`` per
+    block."""
+    row0: int
+    rows: int
+    head0: int
+    heads: int
+
+
+# (group, rows a fold in the launch, rows a fold in the run, row0, heads in
+# the run, head0): the kernels' SeedMap (csrc/attention_common.cuh)
+SeedMapArgs = Tuple[int, int, int, int, int, int]
+
+
+def _seed_map(batch: int, num_heads: int, folds: int,
+              shard: Optional[SeedShard], blocked: bool) -> SeedMapArgs:
+    """The seed map of a ``[batch, num_heads, ...]`` launch of ``folds``
+    folds: the seed group (a fold's heads per sample; the pair block of a
+    whole fold per block) and the slice ``shard`` (None: all of it)."""
+    rows = _fold_batch(batch, folds)
+    if shard is None:
+        shard = SeedShard(0, rows, 0, num_heads)
+    if (shard.row0 < 0 or shard.row0 + rows > shard.rows or shard.head0 < 0
+            or shard.head0 + num_heads > shard.heads):
+        raise ValueError("a launch of %d rows and %d heads a fold does not "
+                         "fit %s" % (rows, num_heads, shard))
+    group = (_largest_block(shard.rows * shard.heads) if blocked
+             else shard.heads)
+    return (group, rows, shard.rows, shard.row0, shard.heads, shard.head0)
+
+
+def _n_seeds(seed_map: SeedMapArgs, folds: int) -> int:
+    group, _, rows, _, heads, _ = seed_map
+    return folds * rows * heads // group
+
+
 def blocked_seed_count(batch: int, num_heads: int, folds: int = 1) -> int:
     """Number of per-grid-step dropout seeds :func:`fused_attention_blocked`
     consumes for a ``[batch, num_heads, ...]`` input of ``folds`` folds
@@ -185,21 +234,26 @@ def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
     return (a_lo * b_lo + (mid << 16)) & _MASK32
 
 
-def _hash_bits(shape, seed) -> torch.Tensor:
-    """Murmur3-finalizer bits over the linear index of ``shape`` (3-d),
-    xor ``seed·2654435761`` — ``_hash_bits`` of the JAX package, in uint32
-    values held by int64.
+def _hash_bits(shape, seed, offset=0) -> torch.Tensor:
+    """Murmur3-finalizer bits over the linear index of ``shape`` (3-d) plus
+    ``offset``, xor ``seed·2654435761`` — ``_hash_bits`` of the JAX package
+    (``offset`` 0), in uint32 values held by int64.
 
-    ``seed`` is an int or an integer tensor of shape ``[n]``; the result is
-    ``shape`` or ``[n, *shape]``."""
+    ``seed`` is an int or an integer tensor of shape ``[n]``, ``offset`` an
+    int or an integer tensor of shape ``[n]`` (one a seed); the result is
+    ``shape`` or ``[n, *shape]``. The bits of ``shape`` at ``offset`` are
+    the slice of a larger index space's bits that starts there."""
     n0, n1, n2 = shape
     seed_t = torch.as_tensor(seed, dtype=torch.int64)
     dev = seed_t.device
     idx = ((torch.arange(n0, dtype=torch.int64, device=dev)[:, None, None]
             * ((n1 * n2) & _MASK32))
            + torch.arange(n1, dtype=torch.int64, device=dev)[None, :, None] * n2
-           + torch.arange(n2, dtype=torch.int64, device=dev)[None, None, :]
-           ) & _MASK32
+           + torch.arange(n2, dtype=torch.int64, device=dev)[None, None, :])
+    off = torch.as_tensor(offset, dtype=torch.int64, device=dev)
+    if off.dim() == 1:
+        off = off[:, None, None, None]
+    idx = (idx + off) & _MASK32
     s = _mul32(seed_t & _MASK32, 2654435761)
     if s.dim() == 1:
         s = s[:, None, None, None]
@@ -217,9 +271,32 @@ def _dropout_scale(rate: float) -> float:
     return float(np.float32(1.0 / (1.0 - rate)))
 
 
-def _keep_mask(shape, rate: float, seed) -> torch.Tensor:
+def _keep_mask(shape, rate: float, seed, offset=0) -> torch.Tensor:
     """Keep iff bits >= rate·2³² (P(drop) = rate to within 2⁻³²)."""
-    return _hash_bits(shape, seed) >= _threshold(rate)
+    return _hash_bits(shape, seed, offset) >= _threshold(rate)
+
+
+def _as_seed_map(seed_map: Union[int, SeedMapArgs], B: int, H: int
+                 ) -> SeedMapArgs:
+    """A bare seed group stands for the whole batch's map."""
+    if isinstance(seed_map, int):
+        return (seed_map, B, B, 0, H, 0)
+    return tuple(seed_map)
+
+
+def _pair_keep(B: int, H: int, S: int, rate: float, seeds: torch.Tensor,
+               seed_map: Union[int, SeedMapArgs]) -> torch.Tensor:
+    """The ``[B, H, S, S]`` keep mask: pair ``g = b·H + h`` at its global
+    pair P (``SeedMap::pair``) draws from ``seeds[P // group]`` over the
+    hash index ``(P mod group, i, j)``."""
+    group, rows, rows_total, row0, heads_total, head0 = _as_seed_map(
+        seed_map, B, H)
+    g = torch.arange(B * H, dtype=torch.int64, device=seeds.device)
+    b, h = g // H, g % H
+    P = ((b // rows) * rows_total + row0 + b % rows) * heads_total + head0 + h
+    keep = _keep_mask((1, S, S), rate, seeds.to(torch.int64)[P // group],
+                      (P % group) * (S * S))
+    return keep.reshape(B, H, S, S)
 
 
 # --------------------------------------------------------------------------
@@ -231,10 +308,11 @@ def _bias_rows(bias: torch.Tensor, B: int, S: int) -> torch.Tensor:
     return bias.reshape(B, -1)[:, -S:].to(torch.float32)
 
 
-def _attention_plain(q, k, v, bias, scale, rate, seeds, seed_group):
+def _attention_plain(q, k, v, bias, scale, rate, seeds, seed_map):
     """Shared math of both plain versions. Pair ``g = b·H + h`` draws its
-    dropout bits from ``seeds[g // seed_group]`` over the hash index
-    ``(g mod seed_group, i, j)``."""
+    dropout bits as :func:`_pair_keep` says (``seed_map`` an int: the seed
+    group of the whole batch, from ``seeds[g // group]`` over the hash
+    index ``(g mod group, i, j)``)."""
     B, H, S, D = q.shape
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     s = s + _bias_rows(bias, B, S)[:, None, None, :]
@@ -242,10 +320,7 @@ def _attention_plain(q, k, v, bias, scale, rate, seeds, seed_group):
     e = torch.exp(s - m)
     p = e / e.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        G = B * H
-        keep = _keep_mask((seed_group, S, S), rate,
-                          seeds[:G // seed_group].to(torch.int64))
-        keep = keep.reshape(B, H, S, S)
+        keep = _pair_keep(B, H, S, rate, seeds, seed_map)
         p = torch.where(keep, p * _dropout_scale(rate), p.new_zeros(()))
     o = torch.matmul(p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
@@ -262,31 +337,36 @@ def _seed_arg(n: int, seeds, device) -> torch.Tensor:
 
 def fused_attention_plain(q, k, v, bias, scale: float,
                           dropout_rate: float = 0.0, seeds=None,
-                          folds: int = 1):
+                          folds: int = 1, shard: Optional[SeedShard] = None):
     """Plain PyTorch version of :func:`fused_attention` (per-sample seeds)."""
     B, H = q.shape[:2]
-    _fold_batch(B, folds)
+    seed_map = _seed_map(B, H, folds, shard, blocked=False)
     return _attention_plain(q, k, v, bias, scale, dropout_rate,
-                            _seed_arg(B, seeds, q.device), H)
+                            _seed_arg(_n_seeds(seed_map, folds), seeds,
+                                      q.device), seed_map)
 
 
 def fused_attention_blocked_plain(q, k, v, bias, scale: float,
                                   dropout_rate: float = 0.0, seeds=None,
-                                  folds: int = 1):
+                                  folds: int = 1,
+                                  shard: Optional[SeedShard] = None):
     """Plain PyTorch version of :func:`fused_attention_blocked`
     (per-block seeds, ``_largest_block(B·H)`` pairs of one fold a block)."""
     B, H = q.shape[:2]
-    blk = _fold_block(B, H, folds)
+    seed_map = _seed_map(B, H, folds, shard, blocked=True)
     return _attention_plain(q, k, v, bias, scale, dropout_rate,
-                            _seed_arg(B * H // blk, seeds, q.device), blk)
+                            _seed_arg(_n_seeds(seed_map, folds), seeds,
+                                      q.device), seed_map)
 
 
 def fused_attention_bwd_plain(q, k, v, bias, do, scale: float, rate: float,
-                              seeds, seed_group: int):
+                              seeds, seed_group: Union[int, SeedMapArgs]):
     """Plain PyTorch backward of both kernels: (dq, dk, dv) for the incoming
     gradient ``do``, step for step as ``_bwd_kernel`` with its rounding
-    points. ``seeds`` holds ``B·H // seed_group`` int32 seeds (read iff
-    ``rate > 0``); pair ``g`` draws from ``seeds[g // seed_group]``."""
+    points. ``seed_group`` is a seed map (:func:`_pair_keep`), or for the
+    whole batch its group: ``seeds`` then holds ``B·H // seed_group`` int32
+    seeds (read iff ``rate > 0``) and pair ``g`` draws from
+    ``seeds[g // seed_group]``."""
     B, H, S, D = q.shape
     qf, kf, dof = q.float(), k.float(), do.float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
@@ -296,9 +376,7 @@ def fused_attention_bwd_plain(q, k, v, bias, do, scale: float, rate: float,
     p = e / e.sum(dim=-1, keepdim=True)               # pre-dropout probs
     dp = torch.matmul(dof, v.float().transpose(-1, -2))
     if rate > 0.0:
-        keep = _keep_mask((seed_group, S, S), rate,
-                          seeds[:B * H // seed_group].to(torch.int64))
-        keep = keep.reshape(B, H, S, S)
+        keep = _pair_keep(B, H, S, rate, seeds, seed_group)
         c, zero = _dropout_scale(rate), p.new_zeros(())
         pd = torch.where(keep, p * c, zero)            # dropped probs
         dp = torch.where(keep, dp * c, zero)           # chain rule
@@ -326,14 +404,16 @@ def _bwd_lib():
     if not getattr(lib, "typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         u = ctypes.c_uint
+        seed_map = [i] * 6  # SeedMap: group, rows, rows_total, row0, ...
         lib.fused_attention_bwd.argtypes = [
             i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i,
-            i, vp]
+            *seed_map, vp]
         lib.fused_attention_bwd_mma.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i,
+            *seed_map, vp]
         lib.fused_attention_bwd_tf32.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i,
-            i, vp]
+            *seed_map, vp]
         lib.fused_attention_bwd_mma_smem.argtypes = [i, i]
         lib.fused_attention_bwd_tf32_smem.argtypes = [i, i]
         for fn in (lib.fused_attention_bwd, lib.fused_attention_bwd_mma,
@@ -352,12 +432,14 @@ def _lib():
     if not hasattr(lib, "max_s"):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         u = ctypes.c_uint
+        seed_map = [i] * 6  # SeedMap: group, rows, rows_total, row0, ...
         lib.fused_attention_fwd.argtypes = [
-            i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+            i, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, *seed_map, vp]
         lib.fused_attention_fwd_mma.argtypes = [
-            vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+            vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, *seed_map, vp]
         lib.fused_attention_fwd_tf32.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, i, vp]
+            vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, u, f, i, *seed_map,
+            vp]
         lib.fused_attention_mma_smem.argtypes = [i, i]
         lib.fused_attention_tf32_smem.argtypes = [i, i]
         for fn in (lib.fused_attention_max_s, lib.fused_attention_max_d,
@@ -404,9 +486,10 @@ def _check(q, k, v, bias, extra=()):
     return lib
 
 
-def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group, want_stats):
+def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_map, want_stats):
     """Forward kernel on [B, H, S, D] CUDA tensors; ``bias_rows`` [B, S]
-    fp32, ``seeds`` int32 (read only with dropout on). Returns (out, the
+    fp32, ``seeds`` int32 (read only with dropout on), ``seed_map`` the
+    kernels' SeedMap (:func:`_seed_map`). Returns (out, the
     route taken, the row statistics ``[2, B·H, S]`` fp32 that the
     ``mma_tf32x3`` route writes when ``want_stats``, else None)."""
     lib = _check(q, k, v, bias_rows)
@@ -419,7 +502,7 @@ def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group, want_stats):
               seeds.data_ptr() if dropout else None, out.data_ptr())
     shape = (B * H, H, S, D, float(scale), _threshold(rate),
              _dropout_scale(rate) if dropout else 1.0, int(dropout),
-             seed_group)
+             *seed_map)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "mma_bf16":
@@ -440,7 +523,7 @@ def _launch(q, k, v, bias_rows, scale, rate, seeds, seed_group, want_stats):
     return out, route, stats
 
 
-def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group,
+def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_map,
                 out=None, stats=None):
     """Backward kernel on [B, H, S, D] CUDA tensors: one launch on the
     ``mma_bf16`` and ``mma_tf32x3`` routes (the latter from the forward's
@@ -457,7 +540,7 @@ def _launch_bwd(q, k, v, bias_rows, do, scale, rate, seeds, seed_group,
     grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     shape = (B * H, H, S, D, float(scale), _threshold(rate),
              _dropout_scale(rate) if dropout else 1.0, int(dropout),
-             seed_group)
+             *_as_seed_map(seed_map, B, H))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "mma_bf16":
@@ -488,16 +571,16 @@ class _FusedAttention(torch.autograd.Function):
     ``mma_tf32x3`` route the output and the row statistics are saved too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias_rows, seeds, scale, rate, seed_group,
+    def forward(ctx, q, k, v, bias_rows, seeds, scale, rate, seed_map,
                 name):
-        ctx.scale, ctx.rate, ctx.seed_group, ctx.name = (scale, rate,
-                                                         seed_group, name)
+        ctx.scale, ctx.rate, ctx.seed_map, ctx.name = (scale, rate,
+                                                       seed_map, name)
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, bias_rows, seeds)
             return _attention_plain(q, k, v, bias_rows, scale, rate, seeds,
-                                    seed_group)
+                                    seed_map)
         out, route, stats = _launch(q, k, v, bias_rows, scale, rate, seeds,
-                                    seed_group, any(ctx.needs_input_grad[:3]))
+                                    seed_map, any(ctx.needs_input_grad[:3]))
         if stats is None:
             ctx.save_for_backward(q, k, v, bias_rows, seeds)
         else:
@@ -510,7 +593,7 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias_rows, seeds, *saved = ctx.saved_tensors
         do = do.contiguous()
-        args = (ctx.scale, ctx.rate, seeds, ctx.seed_group)
+        args = (ctx.scale, ctx.rate, seeds, ctx.seed_map)
         if q.device.type == "cpu":
             grads = fused_attention_bwd_plain(q, k, v, bias_rows, do, *args)
         else:
@@ -521,7 +604,7 @@ class _FusedAttention(torch.autograd.Function):
         return (*grads, None, None, None, None, None, None)
 
 
-def _apply(q, k, v, bias, scale, rate, seeds, seed_group, name):
+def _apply(q, k, v, bias, scale, rate, seeds, folds, shard, name):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError("fused attention runs on cuda or cpu tensors, got %s"
                          % q.device)
@@ -529,28 +612,32 @@ def _apply(q, k, v, bias, scale, rate, seeds, seed_group, name):
     if bias.numel() != B * S:
         raise ValueError("bias must be [B, 1, 1, S], got %s"
                          % (tuple(bias.shape),))
+    seed_map = _seed_map(B, H, folds, shard,
+                         blocked=name == "fused_attention_blocked")
     bias_rows = _bias_rows(bias, B, S).contiguous()
     # seeds are read only with dropout on
-    seeds = (_seed_arg(B * H // seed_group, seeds, q.device) if rate > 0.0
-             else None)
+    seeds = (_seed_arg(_n_seeds(seed_map, folds), seeds, q.device)
+             if rate > 0.0 else None)
     return _FusedAttention.apply(q, k, v, bias_rows, seeds, float(scale),
-                                 float(rate), seed_group, name)
+                                 float(rate), seed_map, name)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, scale: float,
                     dropout_rate: float = 0.0,
                     seeds: Optional[torch.Tensor] = None,
-                    folds: int = 1) -> torch.Tensor:
+                    folds: int = 1,
+                    shard: Optional[SeedShard] = None) -> torch.Tensor:
     """dropout(softmax(q·kᵀ·scale + bias))·v, per sample; differentiable in
     q, k and v.
 
     q/k/v: [B, H, S, D] (``folds`` folds of B // folds samples, fold-major);
     bias: [B, 1, 1, S] additive fp32 mask; seeds: [B] int32 per-sample seeds
-    (read iff dropout_rate > 0). Returns [B, H, S, D] in q.dtype.
+    (read iff dropout_rate > 0; with ``shard``, ``folds × shard.rows``: a
+    slice of each fold's rows and heads, hashed as in the whole run).
+    Returns [B, H, S, D] in q.dtype.
     """
-    _fold_batch(q.shape[0], folds)
-    return _apply(q, k, v, bias, scale, dropout_rate, seeds, q.shape[1],
+    return _apply(q, k, v, bias, scale, dropout_rate, seeds, folds, shard,
                   "fused_attention")
 
 
@@ -558,10 +645,13 @@ def fused_attention_blocked(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor, scale: float,
                             dropout_rate: float = 0.0,
                             seeds: Optional[torch.Tensor] = None,
-                            folds: int = 1) -> torch.Tensor:
+                            folds: int = 1,
+                            shard: Optional[SeedShard] = None
+                            ) -> torch.Tensor:
     """Pair-blocked fused attention; same signature as
     :func:`fused_attention` except ``seeds`` is per block
-    (``[blocked_seed_count(B, H, folds)]`` int32, fold-major)."""
-    return _apply(q, k, v, bias, scale, dropout_rate, seeds,
-                  _fold_block(q.shape[0], q.shape[1], folds),
+    (``[blocked_seed_count(B, H, folds)]`` int32, fold-major; with
+    ``shard``, the blocks of the whole run's ``shard.rows × shard.heads``
+    pairs a fold)."""
+    return _apply(q, k, v, bias, scale, dropout_rate, seeds, folds, shard,
                   "fused_attention_blocked")

@@ -46,6 +46,25 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t idx, uint32_t seed) {
   return x ^ (x >> 16);
 }
 
+// How pair g = b·H + h of a launch finds its dropout seed and hash index. A
+// launch may hold a slice of each fold's (sample, head) pairs: `rows` rows a
+// fold, rows [row0, row0 + rows) of the fold's `rows_total`, and its H heads
+// [head0, head0 + H) of `heads_total`. Its global pair
+//   P = (f·rows_total + row0 + b mod rows)·heads_total + head0 + h,  f = b / rows,
+// is the index the pair has in the run that holds every row and head, so the
+// seed seeds[P / group] and the hash index (P mod group)·S² + i·S + j are
+// the ones that run draws (ops/attention.py: SeedShard). With the whole
+// batch (rows = rows_total = B, row0 = head0 = 0, heads_total = H), P = g.
+struct SeedMap {
+  int group, rows, rows_total, row0, heads_total, head0;
+  __device__ __forceinline__ uint32_t pair(int g, int H) const {
+    const int b = g / H, h = g - b * H;
+    const int f = b / rows;
+    return (uint32_t)(f * rows_total + row0 + (b - f * rows)) * (uint32_t)heads_total +
+           (uint32_t)(head0 + h);
+  }
+};
+
 __host__ __device__ __forceinline__ int round32(int s) { return (s + 31) & ~31; }
 
 // Stage rows [0, n_pad) of a [n, D] matrix into shared memory as fp32 with

@@ -5,11 +5,13 @@
 //   meme_challenge_tpu/ops/attention.py  _blk_fwd_kernel  (pair-blocked grid, :265-285)
 // Both compute the same function; they differ only in how a (sample, head)
 // pair finds its dropout seed and its hash index. Here that is one device body
-// with one integer, `seed_group`:
-//   pair g = b·H + h, bias row g / H,
-//   seed  = seeds[g / seed_group],
-//   index = (g mod seed_group)·S·S + i·S + j   (uint32, wrapping).
-// Per sample: seed_group = H. Per block: seed_group = blk (_largest_block(B·H)).
+// with one map, `SeedMap` (attention_common.cuh):
+//   pair g = b·H + h, bias row g / H; its global pair P = seed_map.pair(g, H)
+//   (P = g unless the launch holds a slice of each fold's rows or heads),
+//   seed  = seeds[P / group],
+//   index = (P mod group)·S·S + i·S + j   (uint32, wrapping).
+// Per sample: group = the fold's heads. Per block: group = blk
+// (_largest_block of one fold's global B·H).
 //
 // Dropout bits are the JAX interpret-mode hash (_hash_bits, attention.py:51-65),
 // a murmur3 finalizer over the linear index xor seed·2654435761, so the mask of
@@ -106,7 +108,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const float* __restrict__ bias,
                 const int32_t* __restrict__ seeds, T* __restrict__ out,
                 int H, int S, int D, float scale, uint32_t threshold,
-                float drop_scale, int use_dropout, int seed_group) {
+                float drop_scale, int use_dropout, SeedMap seed_map) {
   extern __shared__ __align__(16) float smem[];
   const int S_pad = round32(S);
   const int n_t = S_pad >> 5;
@@ -157,8 +159,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bias_row = bias + (size_t)(g / H) * S;
   uint32_t seed = 0, idx_base = 0;
   if (use_dropout) {
-    seed = (uint32_t)seeds[g / seed_group];
-    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+    seed = (uint32_t)seeds[seed_map.pair(g, H) / seed_map.group];
+    idx_base = (uint32_t)(seed_map.pair(g, H) % seed_map.group) * ((uint32_t)S * (uint32_t)S);
   }
   float b[kMaxT];
 #pragma unroll
@@ -283,7 +285,7 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ bias,
                     const int32_t* __restrict__ seeds, bf16* __restrict__ out, int H,
                     int S, int D, float scale, uint32_t threshold, float drop_scale,
-                    int use_dropout, int seed_group) {
+                    int use_dropout, SeedMap seed_map) {
   using namespace mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S_pad = kFull ? 16 * kKeyChunks : pad16(S);
@@ -314,8 +316,8 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float p[2 * kKeyChunks][4];
   softmax_rows<DC>(p, q_s, k_s, ld, bias_s, m0, n_kc, n_dc, scale, lane);
   if (use_dropout) {
-    const uint32_t seed = (uint32_t)seeds[g / seed_group];
-    const uint32_t idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+    const uint32_t seed = (uint32_t)seeds[seed_map.pair(g, H) / seed_map.group];
+    const uint32_t idx_base = (uint32_t)(seed_map.pair(g, H) % seed_map.group) * ((uint32_t)S * (uint32_t)S);
 #pragma unroll
     for (int nt = 0; nt < 2 * kKeyChunks; ++nt) {
       if (nt < 2 * n_kc) {
@@ -361,7 +363,7 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DC, bool kFull>
 int launch_mma_dc(const void* q, const void* k, const void* v, const void* bias,
                   const void* seeds, void* out, int G, int H, int S, int D, float scale,
-                  uint32_t threshold, float drop_scale, int use_dropout, int seed_group,
+                  uint32_t threshold, float drop_scale, int use_dropout, SeedMap seed_map,
                   cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -374,7 +376,7 @@ int launch_mma_dc(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
       static_cast<const int32_t*>(seeds), static_cast<bf16*>(out), H, S, D, scale,
-      threshold, drop_scale, use_dropout, seed_group);
+      threshold, drop_scale, use_dropout, seed_map);
   return (int)cudaGetLastError();
 }
 
@@ -382,7 +384,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* seeds, void* out, int G, int H, int S, int D,
            float scale, uint32_t threshold, float drop_scale, int use_dropout,
-           int seed_group, cudaStream_t stream) {
+           SeedMap seed_map, cudaStream_t stream) {
   if (S < 1 || S > 32 * kMaxT || D < 4 || D > 32 * kMaxU || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(S, D);
@@ -394,7 +396,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const int32_t*>(seeds),
       static_cast<T*>(out), H, S, D, scale, threshold, drop_scale, use_dropout,
-      seed_group);
+      seed_map);
   return (int)cudaGetLastError();
 }
 
@@ -418,7 +420,7 @@ attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const int32_t* __restrict__ seeds, float* __restrict__ out,
                      float* __restrict__ stats, int G, int H, int S, int D, float scale,
                      uint32_t threshold, float drop_scale, int use_dropout,
-                     int seed_group) {
+                     SeedMap seed_map) {
   using namespace mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S_pad = kFull ? 16 * kKeyChunks : pad16(S);
@@ -490,8 +492,8 @@ attn_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (use_dropout) {
-    const uint32_t seed = (uint32_t)seeds[g / seed_group];
-    const uint32_t idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+    const uint32_t seed = (uint32_t)seeds[seed_map.pair(g, H) / seed_map.group];
+    const uint32_t idx_base = (uint32_t)(seed_map.pair(g, H) % seed_map.group) * ((uint32_t)S * (uint32_t)S);
 #pragma unroll
     for (int nt = 0; nt < 2 * kKeyChunks; ++nt) {
       if (nt < 2 * n_kc) {
@@ -537,7 +539,7 @@ template <int DC, bool kFull>
 int launch_tf32_dc(const void* q, const void* k, const void* v, const void* bias,
                    const void* seeds, void* out, void* stats, int G, int H, int S, int D,
                    float scale, uint32_t threshold, float drop_scale, int use_dropout,
-                   int seed_group, cudaStream_t stream) {
+                   SeedMap seed_map, cudaStream_t stream) {
   const size_t smem = tf32_smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_tf32_kernel<DC, kFull>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -550,7 +552,7 @@ int launch_tf32_dc(const void* q, const void* k, const void* v, const void* bias
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<const int32_t*>(seeds), static_cast<float*>(out),
       static_cast<float*>(stats), G, H, S, D, scale, threshold, drop_scale, use_dropout,
-      seed_group);
+      seed_map);
   return (int)cudaGetLastError();
 }
 
@@ -572,14 +574,15 @@ int fused_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* bias, const void* seeds, void* out, int G,
                         int H, int S, int D, float scale, unsigned int threshold,
                         float drop_scale, int use_dropout, int seed_group,
-                        void* stream) {
+    int rows, int rows_total, int row0, int heads_total, int head0, void* stream) {
+  const SeedMap sm{seed_group, rows, rows_total, row0, heads_total, head0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, bias, seeds, out, G, H, S, D, scale, threshold,
-                         drop_scale, use_dropout, seed_group, st);
+                         drop_scale, use_dropout, sm, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, bias, seeds, out, G, H, S, D, scale,
-                                 threshold, drop_scale, use_dropout, seed_group, st);
+                                 threshold, drop_scale, use_dropout, sm, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -590,18 +593,19 @@ int fused_attention_fwd_mma(const void* q, const void* k, const void* v,
                             const void* bias, const void* seeds, void* out, int G, int H,
                             int S, int D, float scale, unsigned int threshold,
                             float drop_scale, int use_dropout, int seed_group,
-                            void* stream) {
+    int rows, int rows_total, int row0, int heads_total, int head0, void* stream) {
+  const SeedMap sm{seed_group, rows, rows_total, row0, heads_total, head0};
   if (S < 1 || S > mma::kMaxS || D < 4 || D > mma::kMaxD || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == 64)
     return launch_mma_dc<4, true>(q, k, v, bias, seeds, out, G, H, S, D, scale,
-                                  threshold, drop_scale, use_dropout, seed_group, st);
+                                  threshold, drop_scale, use_dropout, sm, st);
   if (mma::pad16(D) <= 64)
     return launch_mma_dc<4, false>(q, k, v, bias, seeds, out, G, H, S, D, scale,
-                                   threshold, drop_scale, use_dropout, seed_group, st);
+                                   threshold, drop_scale, use_dropout, sm, st);
   return launch_mma_dc<8, false>(q, k, v, bias, seeds, out, G, H, S, D, scale,
-                                 threshold, drop_scale, use_dropout, seed_group, st);
+                                 threshold, drop_scale, use_dropout, sm, st);
 }
 
 int fused_attention_mma_max_s(void) { return mma::kMaxS; }
@@ -616,18 +620,20 @@ int fused_attention_fwd_tf32(const void* q, const void* k, const void* v,
                              const void* bias, const void* seeds, void* out, void* stats,
                              int G, int H, int S, int D, float scale,
                              unsigned int threshold, float drop_scale, int use_dropout,
-                             int seed_group, void* stream) {
+                             int seed_group,
+    int rows, int rows_total, int row0, int heads_total, int head0, void* stream) {
+  const SeedMap sm{seed_group, rows, rows_total, row0, heads_total, head0};
   if (S < 1 || S > mma::kMaxS || D < 4 || D > mma::kMaxD || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == 64)
     return launch_tf32_dc<4, true>(q, k, v, bias, seeds, out, stats, G, H, S, D, scale,
-                                   threshold, drop_scale, use_dropout, seed_group, st);
+                                   threshold, drop_scale, use_dropout, sm, st);
   if (mma::pad16(D) <= 64)
     return launch_tf32_dc<4, false>(q, k, v, bias, seeds, out, stats, G, H, S, D, scale,
-                                    threshold, drop_scale, use_dropout, seed_group, st);
+                                    threshold, drop_scale, use_dropout, sm, st);
   return launch_tf32_dc<8, false>(q, k, v, bias, seeds, out, stats, G, H, S, D, scale,
-                                  threshold, drop_scale, use_dropout, seed_group, st);
+                                  threshold, drop_scale, use_dropout, sm, st);
 }
 
 // dynamic shared memory of one mma_tf32x3 block (the route rule's formula)

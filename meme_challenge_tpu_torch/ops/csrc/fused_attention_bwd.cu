@@ -5,8 +5,9 @@
 //   meme_challenge_tpu/ops/attention.py  _bwd_kernel      (per-sample grid, :114-155)
 //   meme_challenge_tpu/ops/attention.py  _blk_bwd_kernel  (pair-blocked grid, :288-323)
 // As in the forward (fused_attention.cu) both are one device body with one
-// integer, `seed_group`: pair g = b·H + h reads its bias row g / H, its seed
-// seeds[g / seed_group] and hashes index (g mod seed_group)·S² + i·S + j.
+// map, `SeedMap`: pair g = b·H + h reads its bias row g / H; its global pair
+// P = seed_map.pair(g, H) reads the seed seeds[P / group] and hashes index
+// (P mod group)·S² + i·S + j.
 // The mask depends only on (g, i, j), so it is regenerated bit for bit by
 // any tiling; neither P nor the mask is stored between forward and backward.
 //
@@ -171,7 +172,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const int32_t* __restrict__ seeds, const T* __restrict__ dout,
                    T* __restrict__ dq, float* __restrict__ stats, int G, int H,
                    int S, int D, float scale, uint32_t threshold,
-                   float drop_scale, int use_dropout, int seed_group) {
+                   float drop_scale, int use_dropout, SeedMap seed_map) {
   extern __shared__ __align__(16) float smem[];
   const int S_pad = round32(S);
   const int n_t = S_pad >> 5;
@@ -247,8 +248,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   row_dots(dp, r_s, kv_s, r0, D, kstride, n_t, lane);
   uint32_t seed = 0, idx_base = 0;
   if (use_dropout) {
-    seed = (uint32_t)seeds[g / seed_group];
-    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+    seed = (uint32_t)seeds[seed_map.pair(g, H) / seed_map.group];
+    idx_base = (uint32_t)(seed_map.pair(g, H) % seed_map.group) * ((uint32_t)S * (uint32_t)S);
   }
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -327,7 +328,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ stats, T* __restrict__ dk,
                     T* __restrict__ dv, int G, int H, int S, int D, float scale,
                     uint32_t threshold, float drop_scale, int use_dropout,
-                    int seed_group) {
+                    SeedMap seed_map) {
   extern __shared__ __align__(16) float smem[];
   const int stride = D + 4;
   float* k_s = smem;                        // K tile [kRows][D+4]
@@ -358,8 +359,8 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   uint32_t seed = 0, idx_base = 0;
   if (use_dropout) {
-    seed = (uint32_t)seeds[g / seed_group];
-    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+    seed = (uint32_t)seeds[seed_map.pair(g, H) / seed_map.group];
+    idx_base = (uint32_t)(seed_map.pair(g, H) % seed_map.group) * ((uint32_t)S * (uint32_t)S);
   }
   float acc_v[kRowsPerWarp][kMaxU], acc_k[kRowsPerWarp][kMaxU];
 #pragma unroll
@@ -493,7 +494,7 @@ attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const int32_t* __restrict__ seeds, const bf16* __restrict__ dout,
                     bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
                     int H, int S, int D, float scale, uint32_t threshold,
-                    float drop_scale, int use_dropout, int seed_group) {
+                    float drop_scale, int use_dropout, SeedMap seed_map) {
   using namespace mma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int S_pad = kFull ? 16 * kKeyChunks : pad16(S);
@@ -529,8 +530,8 @@ attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();  // V and dout are in shared memory
   uint32_t seed = 0, idx_base = 0;
   if (use_dropout) {
-    seed = (uint32_t)seeds[g / seed_group];
-    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+    seed = (uint32_t)seeds[seed_map.pair(g, H) / seed_map.group];
+    idx_base = (uint32_t)(seed_map.pair(g, H) % seed_map.group) * ((uint32_t)S * (uint32_t)S);
   }
   // dp = dout·Vᵀ whole beside p; the mask, pd to shared memory, Δ
   float dp[2 * kKeyChunks][4];
@@ -632,7 +633,7 @@ template <int DC, bool kFull>
 int launch_mma_dc(const void* q, const void* k, const void* v, const void* bias,
                   const void* seeds, const void* dout, void* dq, void* dk, void* dv,
                   int G, int H, int S, int D, float scale, uint32_t threshold,
-                  float drop_scale, int use_dropout, int seed_group,
+                  float drop_scale, int use_dropout, SeedMap seed_map,
                   cudaStream_t stream) {
   const size_t smem = bwd_mma_smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -644,7 +645,7 @@ int launch_mma_dc(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
       static_cast<const int32_t*>(seeds), static_cast<const bf16*>(dout),
       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, D,
-      scale, threshold, drop_scale, use_dropout, seed_group);
+      scale, threshold, drop_scale, use_dropout, seed_map);
   return (int)cudaGetLastError();
 }
 
@@ -661,7 +662,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* seeds, const void* dout, void* dq, void* dk, void* dv,
            void* stats, int G, int H, int S, int D, float scale,
-           uint32_t threshold, float drop_scale, int use_dropout, int seed_group,
+           uint32_t threshold, float drop_scale, int use_dropout, SeedMap seed_map,
            cudaStream_t stream) {
   if (S < 1 || S > 32 * kMaxT || D < 4 || D > 32 * kMaxU || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
@@ -682,12 +683,12 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   float* ws = static_cast<float*>(stats);
   attn_bwd_dq_kernel<T><<<grid, kWarps * 32, smem_a, stream>>>(
       qt, kt, vt, bt, st, ot, static_cast<T*>(dq), ws, G, H, S, D, scale,
-      threshold, drop_scale, use_dropout, seed_group);
+      threshold, drop_scale, use_dropout, seed_map);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dkv_kernel<T><<<grid, kWarps * 32, smem_b, stream>>>(
       qt, kt, vt, bt, st, ot, ws, static_cast<T*>(dk), static_cast<T*>(dv), G,
-      H, S, D, scale, threshold, drop_scale, use_dropout, seed_group);
+      H, S, D, scale, threshold, drop_scale, use_dropout, seed_map);
   return (int)cudaGetLastError();
 }
 
@@ -715,7 +716,7 @@ attn_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ out, const float* __restrict__ stats,
                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                      int G, int H, int S, int D, float scale, uint32_t threshold,
-                     float drop_scale, int use_dropout, int seed_group) {
+                     float drop_scale, int use_dropout, SeedMap seed_map) {
   using namespace mma;
   constexpr int DC = kTf32MaxD / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -788,8 +789,8 @@ attn_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   uint32_t seed = 0, idx_base = 0;
   if (use_dropout) {
-    seed = (uint32_t)seeds[g / seed_group];
-    idx_base = (uint32_t)(g % seed_group) * ((uint32_t)S * (uint32_t)S);
+    seed = (uint32_t)seeds[seed_map.pair(g, H) / seed_map.group];
+    idx_base = (uint32_t)(seed_map.pair(g, H) % seed_map.group) * ((uint32_t)S * (uint32_t)S);
   }
 
   float acc_v[2 * DC][4], acc_k[2 * DC][4];
@@ -941,7 +942,7 @@ template <bool kFull>
 int launch_tf32(const void* q, const void* k, const void* v, const void* bias,
                 const void* seeds, const void* dout, const void* out, const void* stats,
                 void* dq, void* dk, void* dv, int G, int H, int S, int D, float scale,
-                uint32_t threshold, float drop_scale, int use_dropout, int seed_group,
+                uint32_t threshold, float drop_scale, int use_dropout, SeedMap seed_map,
                 cudaStream_t stream) {
   const size_t smem = bwd_tf32_smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -953,7 +954,7 @@ int launch_tf32(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const int32_t*>(seeds), static_cast<const float*>(dout),
       static_cast<const float*>(out), static_cast<const float*>(stats),
       static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), G, H, S,
-      D, scale, threshold, drop_scale, use_dropout, seed_group);
+      D, scale, threshold, drop_scale, use_dropout, seed_map);
   return (int)cudaGetLastError();
 }
 
@@ -971,15 +972,16 @@ int fused_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         void* dq, void* dk, void* dv, void* stats, int G, int H,
                         int S, int D, float scale, unsigned int threshold,
                         float drop_scale, int use_dropout, int seed_group,
-                        void* stream) {
+    int rows, int rows_total, int row0, int heads_total, int head0, void* stream) {
+  const SeedMap sm{seed_group, rows, rows_total, row0, heads_total, head0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, bias, seeds, dout, dq, dk, dv, stats, G, H, S,
-                         D, scale, threshold, drop_scale, use_dropout, seed_group, st);
+                         D, scale, threshold, drop_scale, use_dropout, sm, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, bias, seeds, dout, dq, dk, dv, stats, G,
                                  H, S, D, scale, threshold, drop_scale,
-                                 use_dropout, seed_group, st);
+                                 use_dropout, sm, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -991,21 +993,23 @@ int fused_attention_bwd_mma(const void* q, const void* k, const void* v,
                             const void* bias, const void* seeds, const void* dout,
                             void* dq, void* dk, void* dv, int G, int H, int S, int D,
                             float scale, unsigned int threshold, float drop_scale,
-                            int use_dropout, int seed_group, void* stream) {
+                            int use_dropout, int seed_group,
+    int rows, int rows_total, int row0, int heads_total, int head0, void* stream) {
+  const SeedMap sm{seed_group, rows, rows_total, row0, heads_total, head0};
   if (S < 1 || S > mma::kMaxS || D < 4 || D > mma::kMaxD || D % 4 != 0 ||
       bwd_mma_smem_bytes(S, D) > (size_t)mma::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == 64)
     return launch_mma_dc<4, true>(q, k, v, bias, seeds, dout, dq, dk, dv, G, H, S, D,
-                                  scale, threshold, drop_scale, use_dropout, seed_group,
+                                  scale, threshold, drop_scale, use_dropout, sm,
                                   st);
   if (mma::pad16(D) <= 64)
     return launch_mma_dc<4, false>(q, k, v, bias, seeds, dout, dq, dk, dv, G, H, S, D,
-                                   scale, threshold, drop_scale, use_dropout, seed_group,
+                                   scale, threshold, drop_scale, use_dropout, sm,
                                    st);
   return launch_mma_dc<8, false>(q, k, v, bias, seeds, dout, dq, dk, dv, G, H, S, D,
-                                 scale, threshold, drop_scale, use_dropout, seed_group,
+                                 scale, threshold, drop_scale, use_dropout, sm,
                                  st);
 }
 
@@ -1021,16 +1025,18 @@ int fused_attention_bwd_tf32(const void* q, const void* k, const void* v,
                              const void* out, const void* stats, void* dq, void* dk,
                              void* dv, int G, int H, int S, int D, float scale,
                              unsigned int threshold, float drop_scale, int use_dropout,
-                             int seed_group, void* stream) {
+                             int seed_group,
+    int rows, int rows_total, int row0, int heads_total, int head0, void* stream) {
+  const SeedMap sm{seed_group, rows, rows_total, row0, heads_total, head0};
   if (S < 1 || S > mma::kMaxS || D < 4 || D > kTf32MaxD || D % 4 != 0 ||
       bwd_tf32_smem_bytes(S, D) > (size_t)mma::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma::pad16(S) == mma::kMaxS && mma::pad16(D) == kTf32MaxD)
     return launch_tf32<true>(q, k, v, bias, seeds, dout, out, stats, dq, dk, dv, G, H, S,
-                             D, scale, threshold, drop_scale, use_dropout, seed_group, st);
+                             D, scale, threshold, drop_scale, use_dropout, sm, st);
   return launch_tf32<false>(q, k, v, bias, seeds, dout, out, stats, dq, dk, dv, G, H, S,
-                            D, scale, threshold, drop_scale, use_dropout, seed_group, st);
+                            D, scale, threshold, drop_scale, use_dropout, sm, st);
 }
 
 // dynamic shared memory of one mma_tf32x3 block (the route rule's formula)

@@ -9,6 +9,13 @@ them: the ``..._fold_i.<ext>`` best checkpoints, the
 ``..._fold_i_{set}_preds.csv`` files with per-fold optimal thresholds from
 each fold's own validation split, the ``..._fold_i_metrics.json`` files,
 and the ensemble search over the fold CSVs, on the trainer's device.
+
+Over a ``torch.distributed`` mesh (``mesh=``, one process a device) every
+rank runs this driver: rank 0 writes the fold splits, each rank exports
+its own folds' checkpoints, CSVs and metrics under the paths a
+one-process run uses (one rank of each fold's data and model group), and
+after a barrier rank 0 alone runs the ensemble search and writes its
+outputs.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from statistics import mean
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from meme_challenge_tpu_torch.core.artifacts import (
     export_metrics_json,
@@ -40,6 +48,7 @@ from meme_challenge_tpu_torch.models.uniter import FoldStack
 from meme_challenge_tpu_torch.parallel.fold_parallel import (
     FoldParallelTrainer,
 )
+from meme_challenge_tpu_torch.parallel.mesh import Mesh
 from meme_challenge_tpu_torch.train.checkpoint import ModelSaver
 
 logger = logging.getLogger("meme_challenge_tpu_torch.crossval_parallel")
@@ -58,8 +67,10 @@ def train_crossval_fold_parallel(
     run_ea: bool = True,
     resume_path: Optional[str] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ):
-    """Train all crossval folds at once on ``device``.
+    """Train all crossval folds at once on ``device`` (over ``mesh``, this
+    rank's part of them).
 
     ``init_model_fn(seed)`` → one fold's MemeUniter on ``device`` (each
     fold seeded ``fold_seed(seed, fold)`` as in the sequential driver); the
@@ -68,12 +79,16 @@ def train_crossval_fold_parallel(
     and, if present at start, loaded so a killed run resumes mid-crossval.
     """
     device = resolve_device(str(device))
+    grouped = dist.is_initialized()
+    lead = not grouped or dist.get_rank() == 0
     test_loaders = test_loaders or []
     cv_path = crossval_dir(config.data_path, dev_size, use_dev_set)
-    if not os.path.isdir(cv_path) or not glob(os.path.join(cv_path,
-                                                           "*.jsonl")):
+    if lead and (not os.path.isdir(cv_path)
+                 or not glob(os.path.join(cv_path, "*.jsonl"))):
         generate_crossval_splits(config.data_path, dev_size=dev_size,
                                  use_dev_set=use_dev_set)
+    if grouped:
+        dist.barrier()
     train_sets = sorted(glob(os.path.join(cv_path, "train_??.jsonl")))
     dev_sets = sorted(glob(os.path.join(cv_path, "dev_??.jsonl")))
     fold_test_sets = sorted(glob(os.path.join(cv_path,
@@ -91,7 +106,10 @@ def train_crossval_fold_parallel(
         (init_model_fn(fold_seed(config.seed, f)) for f in range(num_folds)),
         num_folds)
 
-    trainer = FoldParallelTrainer(config, model, train_loaders, val_loaders)
+    trainer = FoldParallelTrainer(config, model, train_loaders, val_loaders,
+                                  mesh=mesh)
+    del model
+    mine, writes = trainer.folds_here, trainer.writes_exports
     if resume_path and os.path.isfile(resume_path):
         logger.info("[fold-parallel] resuming from %s", resume_path)
         trainer.load_checkpoint(resume_path)
@@ -115,24 +133,28 @@ def train_crossval_fold_parallel(
 
     # per-fold best checkpoints, the sequential names `*_fold_i.*`
     # (reference utils/crossval.py:185 / train_template ModelSaver path)
+    # (this rank's folds: the results of predict_folds come in that order)
     if not config.no_model_checkpoints:
-        for f in range(num_folds):
-            ckpt = os.path.join(config.model_path,
-                                f"{base_name}_fold_{f}.{base_ext}")
-            ModelSaver(ckpt).save(trainer.best_fold_params(f))
+        for f in mine:
+            state = trainer.best_fold_params(f)
+            if writes:
+                ModelSaver(os.path.join(
+                    config.model_path,
+                    f"{base_name}_fold_{f}.{base_ext}")).save(state)
 
     # per-fold optimal thresholds from each fold's validation split
     val_probs, _ = trainer.predict_folds(val_loaders)
-    thresholds = []
-    for f in range(num_folds):
+    thresholds = {}
+    for i, f in enumerate(mine):
         labels = val_loaders[f].dataset.labels
-        thresholds.append(find_optimal_threshold(
-            val_probs[f], labels[:len(val_probs[f])], metric="accuracy"))
-        export_predictions(
-            csv_path(f, val_loaders[f].dataset.name),
-            val_loaders[f].dataset.ids[:len(val_probs[f])], val_probs[f],
-            (val_probs[f] > 0.5).astype(np.int64),
-            labels=labels[:len(val_probs[f])])
+        probs = val_probs[i]
+        thresholds[f] = find_optimal_threshold(
+            probs, labels[:len(probs)], metric="accuracy")
+        if writes:
+            export_predictions(
+                csv_path(f, val_loaders[f].dataset.name),
+                val_loaders[f].dataset.ids[:len(probs)], probs,
+                (probs > 0.5).astype(np.int64), labels=labels[:len(probs)])
 
     all_test_loaders = list(test_loaders)
     if use_dev_set:
@@ -143,48 +165,50 @@ def train_crossval_fold_parallel(
     else:
         per_fold_tests = None
 
-    fold_test_metrics = [{} for _ in range(num_folds)]
+    fold_test_metrics = {f: {} for f in mine}
     for loader in all_test_loaders:
         probs_by_fold, ids_by_fold = trainer.predict_folds(
             [loader] * num_folds)
         has_labels = loader.dataset.labels[0] != -1
-        for f in range(num_folds):
-            export_predictions(
-                csv_path(f, loader.dataset.name), ids_by_fold[f],
-                probs_by_fold[f],
-                (probs_by_fold[f] > thresholds[f]).astype(np.int64),
-                labels=(loader.dataset.labels[:len(probs_by_fold[f])]
-                        if has_labels else None))
+        for i, f in enumerate(mine):
+            probs = probs_by_fold[i]
+            if writes:
+                export_predictions(
+                    csv_path(f, loader.dataset.name), ids_by_fold[i], probs,
+                    (probs > thresholds[f]).astype(np.int64),
+                    labels=(loader.dataset.labels[:len(probs)]
+                            if has_labels else None))
             if has_labels:
                 fold_test_metrics[f][loader.dataset.name] = standard_metrics(
-                    probs_by_fold[f],
-                    loader.dataset.labels[:len(probs_by_fold[f])],
+                    probs, loader.dataset.labels[:len(probs)],
                     add_optimal_acc=True)
     if per_fold_tests is not None:
         # each fold has its OWN dev_seen_XX test split
         probs_by_fold, ids_by_fold = trainer.predict_folds(per_fold_tests)
-        for f in range(num_folds):
-            export_predictions(
-                csv_path(f, per_fold_tests[f].dataset.name), ids_by_fold[f],
-                probs_by_fold[f],
-                (probs_by_fold[f] > thresholds[f]).astype(np.int64),
-                labels=per_fold_tests[f].dataset.labels[
-                    :len(probs_by_fold[f])])
+        for i, f in enumerate(mine):
+            probs, labels = probs_by_fold[i], per_fold_tests[f].dataset.labels
+            if writes:
+                export_predictions(
+                    csv_path(f, per_fold_tests[f].dataset.name),
+                    ids_by_fold[i], probs,
+                    (probs > thresholds[f]).astype(np.int64),
+                    labels=labels[:len(probs)])
             fold_test_metrics[f][per_fold_tests[f].dataset.name] = (
-                standard_metrics(
-                    probs_by_fold[f],
-                    per_fold_tests[f].dataset.labels[:len(probs_by_fold[f])],
-                    add_optimal_acc=True))
+                standard_metrics(probs, labels[:len(probs)],
+                                 add_optimal_acc=True))
 
     # per-fold metrics JSON, the sequential `*_fold_i_metrics.json` names
     # (reference train_template.py:343-354 schema: dev + test sections)
-    for f in range(num_folds):
-        export_metrics_json(
-            os.path.join(config.model_path,
-                         f"{base_name}_fold_{f}_metrics.json"),
-            {"dev": fold_val_metrics[f], "test": fold_test_metrics[f]})
+    for f in mine:
+        if writes:
+            export_metrics_json(
+                os.path.join(config.model_path,
+                             f"{base_name}_fold_{f}_metrics.json"),
+                {"dev": fold_val_metrics[f], "test": fold_test_metrics[f]})
 
-    if run_ensemble:
+    if grouped:
+        dist.barrier()  # every fold's CSVs are written
+    if run_ensemble and lead:
         base_path = os.path.join(config.model_path, base_name + "_fold_*")
         if use_dev_set:
             dev_files = sorted(glob(base_path + "_dev_seen_??_preds.csv"))

@@ -1,4 +1,4 @@
-"""Fold-parallel cross-validation training on one card.
+"""Fold-parallel cross-validation training, on one card or over a mesh.
 
 Counterpart of ``meme_challenge_tpu/parallel/fold_parallel.py``. The JAX
 trainer ``vmap``s one update over a fold axis inside one ``jit``; here the F
@@ -21,7 +21,32 @@ batch axis) and the optimizer once for all F folds:
 - folds march in lockstep; a shorter fold's stream restarts (cycles), so
   no fold drops tail batches.
 
-All F folds sit on the run's one device (``parallel/mesh.py``).
+Without a mesh (or on a mesh of one process) all F folds sit on the run's
+one device. Over a ``torch.distributed`` mesh (``parallel/mesh.py``, one
+process a device, ``torchrun``) each rank runs the same program on its
+part, and every rank's step equals its slice of the one-process step:
+
+- **fold**: rank r of the fold axis holds folds ``[r·F/n, (r+1)·F/n)``
+  (``_shard_state``; F not divisible by n raises, as JAX's ``device_put``
+  of a fold-sharded array does). Each fold draws from its global index.
+  Every rank walks every fold's loader, building batches only for its own,
+  so the host RNGs that shuffle them advance as in one process. The
+  per-fold metrics are all-gathered every epoch, so the early-stopping
+  state, the epochs run and the logs are the same on every rank;
+- **data**: each fold's micro-batch is split by rows over the data axis.
+  A fold's loss is its rows' share of the whole micro-batch's masked mean
+  and the gradients are summed over the group (``train/steps.py``);
+  dropout draws the whole micro-batch's masks and keeps the rank's rows
+  (``models/uniter.py: ShardedGenerators``). Evaluation runs every row on
+  each rank of the data axis;
+- **model**: the ``parallel/mesh.py`` specs split the encoder's products
+  Megatron-style (``models/uniter.py: ModelSplit``); a layer whose column
+  and row products do not both split, or whose heads the axis does not
+  divide, stays whole. Adam's moments follow their parameter's split, and
+  the clip norm adds the split leaves' squares over the model group.
+
+The resume file gathers every fold's whole state to rank 0 and holds the
+one-process file's contents; loading it on any mesh takes each rank's part.
 """
 from __future__ import annotations
 
@@ -34,10 +59,23 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from meme_challenge_tpu_torch.core.config import TrainConfig
 from meme_challenge_tpu_torch.core.metrics import standard_metrics
 from meme_challenge_tpu_torch.core.seeding import fold_dropout_generators
+from meme_challenge_tpu_torch.models.uniter import (
+    FoldStack,
+    ModelSplit,
+    ShardedGenerators,
+)
+from meme_challenge_tpu_torch.parallel.mesh import (
+    Mesh,
+    apply_shardings,
+    filter_divisible_specs,
+    placements,
+    uniter_param_specs,
+)
 from meme_challenge_tpu_torch.train.checkpoint import tree_to
 from meme_challenge_tpu_torch.train.losses import make_loss_fn
 from meme_challenge_tpu_torch.train.optim import Optimizer
@@ -72,6 +110,43 @@ def _check_equal_batch_counts(loaders, what: str) -> None:
             " tail batches (training cycles unequal folds; eval cannot)")
 
 
+def _order_only(loader):
+    """A fold's batch stream that this rank does not train: it draws the
+    loader's order (the host RNG draws of a real pass) and yields None for
+    each batch."""
+    loader._order()
+    for _ in range(len(loader)):
+        yield None
+
+
+_ATTENTION = ("attention.self.query.weight", "attention.self.query.bias",
+              "attention.self.key.weight", "attention.self.key.bias",
+              "attention.self.value.weight", "attention.self.value.bias",
+              "attention.output.dense.weight")
+_FFN = ("intermediate.dense.weight", "intermediate.dense.bias",
+        "output.dense.weight")
+
+
+def _whole_blocks(specs: dict, config, model_size: int) -> dict:
+    """Keep the ``model`` split of a layer's attention (its column and row
+    products) only where all of them split and the axis divides the heads,
+    and of its feed-forward only where both products split; else the block
+    is whole on every rank, as ``filter_divisible_specs`` leaves a leaf."""
+    out = dict(specs)
+    for i in range(config.num_hidden_layers):
+        p = "uniter_model.encoder.layer.%d." % i
+        for block in (_ATTENTION, _FFN):
+            names = [p + n for n in block]
+            whole = not all("model" in specs[n] for n in names) or (
+                block is _ATTENTION
+                and config.num_attention_heads % model_size)
+            if whole:
+                for n in names:
+                    out[n] = {a: v for a, v in specs[n].items()
+                              if a != "model"}
+    return out
+
+
 def _fold_probs(logits: torch.Tensor, loss_func: str) -> torch.Tensor:
     """Probabilities of fold-stacked logits ``[F, B, C]``: fp32 softmax over
     classes for ``ce``, else the sigmoid of class 0 (``[F, B]``)."""
@@ -81,20 +156,23 @@ def _fold_probs(logits: torch.Tensor, loss_func: str) -> torch.Tensor:
 
 
 class FoldParallelTrainer:
-    """Train the F folds of one model at once on one device.
+    """Train the F folds of one model at once, on one device or over a
+    ``torch.distributed`` mesh.
 
     Parameters
     ----------
     config : TrainConfig
-    model : FoldStack (F folds' parameters ``[F, ...]``, on the device)
-    train_loaders / val_loaders : one BatchLoader per fold (equal val
-        lengths; unequal train lengths cycle)
+    model : FoldStack (all F folds' parameters ``[F, ...]``, on the device;
+        over a mesh each rank keeps its part of them)
+    train_loaders / val_loaders : one BatchLoader per fold, all F folds on
+        every rank (equal val lengths; unequal train lengths cycle)
+    mesh : optional ``parallel.mesh.Mesh`` with a ``fold`` axis (and
+        ``data``, ``model``); one of one process runs as without one
     """
 
     def __init__(self, config: TrainConfig, model, train_loaders: List,
-                 val_loaders: List):
+                 val_loaders: List, mesh: Optional[Mesh] = None):
         self.config = config
-        self.model = model
         self.device = model.device
         self.train_loaders = train_loaders
         self.val_loaders = val_loaders
@@ -103,6 +181,18 @@ class FoldParallelTrainer:
             raise ValueError("%d train loaders, %d val loaders, %d folds of "
                              "weights" % (self.num_folds, len(val_loaders),
                                           model.folds))
+        self.mesh = (mesh if mesh is not None and mesh.device_mesh is not None
+                     else None)
+        self.folds_here = list(range(self.num_folds))
+        self.specs = None
+        self.data_rank, self.data_size = 0, 1
+        if self.mesh is not None:
+            model = self._shard_state(model)
+        self.model = model
+        # one rank of each fold's data and model group writes its exports
+        self.writes_exports = (self.mesh is None or (
+            self.mesh.coordinate("data") == 0
+            and self.mesh.coordinate("model") == 0))
         lengths = {len(loader) for loader in train_loaders}
         if len(lengths) > 1:
             logger.warning(
@@ -119,11 +209,13 @@ class FoldParallelTrainer:
         self.schedule = make_schedule(
             c.scheduler, warmup_steps=c.warmup_steps, total_steps=total_steps,
             lr_decay_step=c.lr_decay_step, lr_decay_factor=c.lr_decay_factor)
+        split = model.split
         self.optimizer = Optimizer(
             c.optimizer, c.lr, self.schedule, beta1=c.beta1, beta2=c.beta2,
             weight_decay=c.weight_decay, max_grad_norm=c.max_grad_norm,
             mu_dtype=c.adam_mu_dtype, nu_dtype=c.adam_nu_dtype,
-            folds=self.num_folds)
+            folds=model.folds,
+            split=None if split is None else (set(split.dims), split.group))
         # the folds step in lockstep: one step count serves them all
         self.state = TrainState(model, self.optimizer.init(model.params))
         self.best_params = {k: v.detach().clone()
@@ -142,14 +234,16 @@ class FoldParallelTrainer:
         # corpus. Entries hold the datasets too, so the id()-based keys
         # cannot be recycled while cached.
         self._data_cache: dict = {}
-        self._train_data = (self._stack_fold_data(train_loaders)
+        self._train_data = (self._stack_fold_data(self._here(train_loaders))
                             if self._gather else None)
-        self._val_data = (self._stack_fold_data(val_loaders)
+        self._val_data = (self._stack_fold_data(self._here(val_loaders))
                           if self._gather else None)
         self._train_step = make_fold_train_step(
             model, self.loss_fn, self.optimizer,
             accum_steps=c.gradient_accumulation, gather_data=self._gather,
-            fuse_accum=c.fuse_accum)
+            fuse_accum=c.fuse_accum,
+            data_group=(self.mesh.group("data") if self.mesh is not None
+                        else None))
 
         self.start_epoch = 1
         self.best_metric = np.full(
@@ -159,6 +253,83 @@ class FoldParallelTrainer:
         self.done = np.zeros(self.num_folds, dtype=bool)
         self.fold_val_metrics: List[Dict[str, float]] = [
             {} for _ in range(self.num_folds)]
+
+    # ----------------------------------------------------------------- mesh
+
+    def _shard_state(self, model: FoldStack) -> FoldStack:
+        """This rank's part of the fold-stacked model (JAX ``_shard_state``
+        :322-365): its folds, and with a ``model`` axis its slices of the
+        leaves that ``uniter_param_specs`` split (after
+        ``filter_divisible_specs`` and :func:`_whole_blocks`)."""
+        mesh, F_ = self.mesh, self.num_folds
+        n_fold, r = mesh.axis_size("fold"), mesh.coordinate("fold")
+        if "fold" not in mesh.axis_names or F_ % n_fold:
+            raise ValueError(
+                "%d folds do not split evenly over a fold axis of %d: the "
+                "fold count must be a multiple of the mesh's fold axis (JAX "
+                "device_put of a fold-sharded array raises alike)"
+                % (F_, n_fold))
+        per = F_ // n_fold
+        self.folds_here = list(range(r * per, (r + 1) * per))
+        self.data_rank = mesh.coordinate("data")
+        self.data_size = mesh.axis_size("data")
+        n_model = mesh.axis_size("model")
+        specs = uniter_param_specs(model.params, "model", fold_axis="fold")
+        specs = filter_divisible_specs(mesh, model.params, specs)
+        self.specs = _whole_blocks(specs, model.config, n_model)
+        params = {k: v.detach() for k, v in model.params.items()}
+        local = {k: v.to_local().contiguous() for k, v in apply_shardings(
+            mesh, params, self.specs).items()}
+        dims = {k: spec["model"].dim for k, spec in self.specs.items()
+                if "model" in spec}
+        split = (ModelSplit(mesh.group("model"), mesh.coordinate("model"),
+                            n_model, dims)
+                 if n_model > 1 and dims else None)
+        return FoldStack(model.config, model.n_classes, local, split)
+
+    def _here(self, per_fold: list) -> list:
+        """This rank's entries of a list over all F folds."""
+        return [per_fold[f] for f in self.folds_here]
+
+    def _local_tree(self, tree):
+        """A state tree of whole ``[F, ...]`` tensors (keyed by parameter
+        name, as ``self.specs``) cut to this rank's part."""
+        if self.mesh is None:
+            return tree_to(tree, self.device)
+        if isinstance(tree, dict) and set(tree) == set(self.specs):
+            return {k: v.to_local().contiguous() for k, v in apply_shardings(
+                self.mesh, tree_to(tree, self.device), self.specs).items()}
+        if isinstance(tree, dict):
+            return {k: self._local_tree(v) for k, v in tree.items()}
+        return tree
+
+    def _whole_tree(self, tree):
+        """This rank's part of a state tree keyed by parameter name,
+        gathered into the whole ``[F, ...]`` tensors on the host (a
+        collective: every rank of the mesh calls it)."""
+        if self.mesh is None:
+            return tree_to(tree, "cpu")
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(tree, dict) and set(tree) == set(self.specs):
+            return {k: DTensor.from_local(
+                v.detach(), self.mesh.device_mesh, placements(self.mesh,
+                                                     self.specs[k]),
+                run_check=False).full_tensor().cpu()
+                for k, v in tree.items()}
+        if isinstance(tree, dict):
+            return {k: self._whole_tree(v) for k, v in tree.items()}
+        return tree
+
+    def _all_folds(self, mine: list) -> list:
+        """Per-fold host values of this rank's folds → those of all F
+        folds, in fold order (all-gathered over the fold axis)."""
+        group = None if self.mesh is None else self.mesh.group("fold")
+        if group is None:
+            return list(mine)
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, list(mine), group=group)
+        return [x for part in parts for x in part]
 
     # ------------------------------------------------------------------ data
 
@@ -230,30 +401,52 @@ class FoldParallelTrainer:
         accum = self.config.gradient_accumulation
         steps = max(-(-max(len(loader) for loader in self.train_loaders)
                       // accum), 1)
-        iters = [iter(loader) for loader in self.train_loaders]
+        here = set(self.folds_here)
+
+        def stream(f):
+            loader = self.train_loaders[f]
+            return iter(loader) if f in here else _order_only(loader)
+
+        iters = [stream(f) for f in range(self.num_folds)]
 
         def next_micro(f):
             try:
-                return dict(next(iters[f]))
+                return next(iters[f])
             except StopIteration:
-                iters[f] = iter(self.train_loaders[f])
-                return dict(next(iters[f]))
+                iters[f] = stream(f)
+                return next(iters[f])
 
         for _ in range(steps):
             fold_groups = []
             for f in range(self.num_folds):
-                group = []
-                for _ in range(accum):
-                    b = next_micro(f)
-                    b.pop("ids", None)
-                    group.append(b)
-                fold_groups.append(stack_for_accum(group))
+                group = [next_micro(f) for _ in range(accum)]
+                if f in here:
+                    fold_groups.append(stack_for_accum(
+                        [self._my_rows(b) for b in group]))
             yield {k: np.stack([g[k] for g in fold_groups], axis=0)
                    for k in fold_groups[0]}
 
+    def _my_rows(self, batch: dict) -> dict:
+        """This rank's rows of a micro-batch (all of them without a data
+        axis), without its ids."""
+        batch = {k: v for k, v in batch.items() if k != "ids"}
+        if self.data_size == 1:
+            return batch
+        n = len(batch["sample_mask"])
+        if n % self.data_size:
+            raise ValueError("a micro-batch of %d rows does not split over "
+                             "a data axis of %d" % (n, self.data_size))
+        rows = n // self.data_size
+        r0 = self.data_rank * rows
+        return {k: v[r0:r0 + rows] for k, v in batch.items()}
+
     def _step(self, batch: Dict[str, torch.Tensor]):
         generators = fold_dropout_generators(
-            self.config.seed, self.num_folds, self.state.step, self.device)
+            self.config.seed, self.folds_here, self.state.step, self.device)
+        if self.data_size > 1:
+            rows = batch["sample_mask"].shape[-1]
+            generators = ShardedGenerators(generators, self.data_rank * rows,
+                                           self.data_size * rows)
         self.state, out = self._train_step(self.state, batch, generators,
                                            self._train_data)
         return out["loss"]
@@ -291,8 +484,8 @@ class FoldParallelTrainer:
                         epoch, memes, seconds, memes / max(seconds, 1e-12))
             logger.info("[fold-parallel] epoch %d: %d steps of %d folds x "
                         "%d micro-batches, mean train loss %.4f", epoch,
-                        len(losses), self.num_folds, c.gradient_accumulation,
-                        loss)
+                        len(losses), len(self.folds_here),
+                        c.gradient_accumulation, loss)
 
             metrics_per_fold = self.eval_folds()
             self._early_stopping_update(metrics_per_fold)
@@ -334,8 +527,8 @@ class FoldParallelTrainer:
             # masks and the kept values only (the features are uploaded)
             host_batches.append([(np.asarray(b["sample_mask"]).astype(bool),
                                   np.asarray(b[keep])) for b in batches])
-        probs_per_fold = [[] for _ in range(self.num_folds)]
-        kept_per_fold = [[] for _ in range(self.num_folds)]
+        probs_per_fold = [[] for _ in range(len(loaders))]
+        kept_per_fold = [[] for _ in range(len(loaders))]
         for probs, batches in zip(pipe.results(), host_batches):
             for f, (mask, kept) in enumerate(batches):
                 probs_per_fold[f].append(probs[f][mask])
@@ -350,14 +543,16 @@ class FoldParallelTrainer:
                   seconds: float) -> None:
         logger.info("fold-parallel pass %s: %d batches of %d folds, %d "
                     "memes in %.6f s (%.1f memes/s)", name, n_batches,
-                    self.num_folds, memes, seconds,
+                    len(self.folds_here), memes, seconds,
                     memes / max(seconds, 1e-12))
 
     def eval_folds(self) -> List[Dict[str, float]]:
         """Fold-parallel validation: batches stacked ``[F, B, ...]``;
-        metrics per fold, with the host criterion loss over all samples."""
+        metrics per fold, with the host criterion loss over all samples.
+        Over a mesh, each rank evaluates its folds and the metrics of all
+        F are all-gathered."""
         probs_per_fold, labels_per_fold = self._stacked_pass(
-            self.val_loaders, self._val_data, "val", "labels")
+            self._here(self.val_loaders), self._val_data, "val", "labels")
         out = []
         c = self.config
         for probs, labels in zip(probs_per_fold, labels_per_fold):
@@ -374,7 +569,7 @@ class FoldParallelTrainer:
                 m["loss"] = float(-(w * y * np.log(p)
                                     + (1 - y) * np.log(1 - p)).mean())
             out.append(m)
-        return out
+        return self._all_folds(out)
 
     def _early_stopping_update(self, metrics_per_fold) -> None:
         """Per-fold early stopping (reference train_template.py:221-241
@@ -394,6 +589,7 @@ class FoldParallelTrainer:
                                      np.where(~self.done, 0,
                                               self.not_improved))
         self.done = self.done | (self.not_improved >= c.patience)
+        improved = improved[self.folds_here]
         if improved.any():
             idx = torch.as_tensor(np.where(improved)[0], device=self.device)
             with torch.no_grad():
@@ -409,8 +605,15 @@ class FoldParallelTrainer:
         early-stopping arrays, the next epoch, and (as a JSON string) the
         best-epoch metrics and the python and numpy host RNG states, which
         drive the loaders' shuffling. Written to ``path.tmp`` and moved over
-        ``path``, so a kill mid-write keeps the previous file."""
+        ``path``, so a kill mid-write keeps the previous file. Over a mesh
+        every rank's part is gathered and rank 0 writes the file a
+        one-process run writes."""
         t0 = time.perf_counter()
+        params = self._whole_tree(self.model.params)
+        opt_state = self._whole_tree(self.state.opt_state)
+        best_params = self._whole_tree(self.best_params)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         py_state = random.getstate()
         np_state = np.random.get_state()
         meta_record = json.dumps({
@@ -421,10 +624,10 @@ class FoldParallelTrainer:
                        float(np_state[4])],
         })
         payload = {
-            "params": tree_to(self.model.params, "cpu"),
-            "opt_state": tree_to(self.state.opt_state, "cpu"),
+            "params": params,
+            "opt_state": opt_state,
             "step": [int(self.state.step)] * self.num_folds,
-            "best_params": tree_to(self.best_params, "cpu"),
+            "best_params": best_params,
             "best_metric": torch.from_numpy(np.asarray(self.best_metric,
                                                        np.float64)),
             "not_improved": torch.from_numpy(self.not_improved),
@@ -441,13 +644,15 @@ class FoldParallelTrainer:
                     os.path.getsize(path) / 1e9, time.perf_counter() - t0)
 
     def load_checkpoint(self, path: str) -> None:
+        """Resume from a file of :meth:`save_checkpoint`, whatever mesh
+        wrote it: every rank reads it and keeps its part."""
         payload = torch.load(path, map_location="cpu", weights_only=True)
         with torch.no_grad():
-            for k, v in payload["params"].items():
+            for k, v in self._local_tree(payload["params"]).items():
                 self.model.params[k].copy_(v)
-            for k, v in payload["best_params"].items():
+            for k, v in self._local_tree(payload["best_params"]).items():
                 self.best_params[k].copy_(v)
-        self.state.opt_state = tree_to(payload["opt_state"], self.device)
+        self.state.opt_state = self._local_tree(payload["opt_state"])
         steps = set(payload["step"])
         if len(steps) != 1:
             raise ValueError("folds at unequal steps %s" % payload["step"])
@@ -467,12 +672,24 @@ class FoldParallelTrainer:
     # -------------------------------------------------------------- exports
 
     def best_fold_params(self, fold_idx: int) -> Dict[str, torch.Tensor]:
-        """Fold ``fold_idx``'s best MemeUniter ``state_dict`` (views)."""
-        return self.model.fold_state_dict(fold_idx, self.best_params)
+        """Fold ``fold_idx``'s best MemeUniter ``state_dict``: views, or
+        over a ``model`` axis its slices gathered from the model group (a
+        collective of that group). ``fold_idx`` is a fold of this rank."""
+        f = self.folds_here.index(fold_idx)
+        sd = self.model.fold_state_dict(f, self.best_params)
+        split = self.model.split
+        if split is None:
+            return sd
+        for k, dim in split.dims.items():
+            parts = [torch.empty_like(sd[k]) for _ in range(split.size)]
+            dist.all_gather(parts, sd[k].contiguous(), group=split.group)
+            sd[k] = torch.cat(parts, dim=dim - 1)
+        return sd
 
     def predict_folds(self, loaders: List):
-        """Per-fold (probabilities, ids) over per-fold loaders with the best
-        parameters: ``(probs_per_fold, ids_per_fold)``.
+        """Per-fold (probabilities, ids) over per-fold loaders (one a fold,
+        all F) with the best parameters: ``(probs_per_fold,
+        ids_per_fold)``, for this rank's folds (``folds_here``).
 
         When every entry is the SAME loader object (a shared test set), each
         batch is uploaded once and broadcast over the fold axis on the
@@ -485,6 +702,7 @@ class FoldParallelTrainer:
                                     for loader in loaders):
             return self._predict_shared(loaders[0])
         _check_equal_batch_counts(loaders, "predict")
+        loaders = self._here(loaders)
         pred_data = self._stack_fold_data(loaders) if pred_gather else None
         live, self.model.params = self.model.params, self.best_params
         try:
@@ -509,7 +727,7 @@ class FoldParallelTrainer:
                 batch = to_device(b, self.device, keys=keys)
                 if data is not None:
                     batch = gather_micro(data, batch)
-                batch = {k: v.unsqueeze(0).expand((self.num_folds,)
+                batch = {k: v.unsqueeze(0).expand((self.model.folds,)
                                                   + tuple(v.shape))
                          for k, v in batch.items() if k in MODEL_INPUT_KEYS}
                 pipe.add(self._forward_probs(batch))  # [F, B]
@@ -520,9 +738,9 @@ class FoldParallelTrainer:
                 [p[:, m] for p, m in zip(pipe.results(), masks)], axis=1)
             ids_cat = np.concatenate(ids_chunks)
             self._log_pass(loader.dataset.name, len(masks),
-                           self.num_folds * len(ids_cat),
+                           self.model.folds * len(ids_cat),
                            time.perf_counter() - t0)
-            return ([probs_cat[f] for f in range(self.num_folds)],
-                    [ids_cat.copy() for _ in range(self.num_folds)])
+            return ([probs_cat[f] for f in range(self.model.folds)],
+                    [ids_cat.copy() for _ in range(self.model.folds)])
         finally:
             self.model.params = live

@@ -32,6 +32,9 @@ With ``folds=F`` every parameter carries a leading fold axis ``[F, ...]``
 chain under JAX's ``vmap`` over folds: the global-norm clip takes one norm
 a fold and scales each fold by its own trigger. Everything else is
 elementwise, and the folds step in lockstep, so one count serves them all.
+Where a ``model`` mesh axis splits some parameters over its ranks
+(``split=(names, group)``), their squared sums are added over the group
+and every other parameter, whole on each rank, is counted once.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _F = np.float32
 
@@ -120,7 +124,8 @@ class Optimizer:
                  weight_decay: float = 0.0,
                  max_grad_norm: Optional[float] = None, eps: float = 1e-8,
                  update_scales: Optional[Dict[str, object]] = None,
-                 mu_dtype=None, nu_dtype=None, folds: int = 0):
+                 mu_dtype=None, nu_dtype=None, folds: int = 0,
+                 split=None):
         if name not in ("adam", "adamax", "adamw", "sgd"):
             raise ValueError("invalid optimizer")
         self.name, self.lr, self.schedule = name, lr, schedule_fn
@@ -130,6 +135,7 @@ class Optimizer:
         self.update_scales = update_scales
         self.mu_dtype, self.nu_dtype = _dtype(mu_dtype), _dtype(nu_dtype)
         self.folds = folds
+        self.split = split
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         def zeros(dtype):
@@ -147,7 +153,7 @@ class Optimizer:
 
     # -------------------------------------------------------- the transforms
 
-    def _clip(self, g):
+    def _clip(self, g, names):
         """optax.clip_by_global_norm: g unchanged below ``max_grad_norm``,
         else ``g / norm · max_norm``; no host sync. With folds, one norm and
         one trigger a fold."""
@@ -155,11 +161,21 @@ class Optimizer:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(g)))
         else:
-            # every fold's slice of every tensor in one foreach call
-            norms = torch._foreach_norm([x[f] for x in g
-                                         for f in range(self.folds)])
-            norm = torch.linalg.vector_norm(
-                torch.stack(norms).reshape(len(g), self.folds), dim=0)
+            # every fold's slice of every tensor in one foreach call; with
+            # a model split, the split tensors first
+            cut = ([] if self.split is None else
+                   [i for i, n in enumerate(names) if n in self.split[0]])
+            order = cut + [i for i in range(len(g)) if i not in set(cut)]
+            norms = torch.stack(torch._foreach_norm(
+                [g[i][f] for i in order for f in range(self.folds)])).reshape(
+                    len(g), self.folds)
+            if self.split is None:
+                norm = torch.linalg.vector_norm(norms, dim=0)
+            else:
+                sq = norms.square()
+                part = sq[:len(cut)].sum(0)
+                dist.all_reduce(part, group=self.split[1])
+                norm = torch.sqrt(sq[len(cut):].sum(0) + part)
         trigger = norm < self.max_grad_norm
         one = torch.ones_like(norm)
         div = torch.where(trigger, one, norm)
@@ -224,7 +240,7 @@ class Optimizer:
         p = [params[n].detach() for n in names]
         u = [grads[n] for n in names]
         if self.max_grad_norm is not None:
-            u = self._clip(u)
+            u = self._clip(u, names)
         count = state["count"]
         if self.name == "adamw":
             u = self._decay(self._adam(u, state, names, count + 1), p, names)

@@ -36,6 +36,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from meme_challenge_tpu_torch.core.seeding import dropout_generator
 
@@ -150,9 +151,18 @@ def fold_gather(data, batch: Dict[str, torch.Tensor]
     return out
 
 
+def _sum_over(group, tensors: list) -> list:
+    """The sum of each tensor over the ranks of ``group``, in one
+    all-reduce of their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [t.view_as(x) for t, x in
+            zip(flat.split([x.numel() for x in tensors]), tensors)]
+
+
 def make_fold_train_step(model, loss_fn: Callable, optimizer,
                          accum_steps: int = 1, gather_data: bool = False,
-                         fuse_accum: bool = False):
+                         fuse_accum: bool = False, data_group=None):
     """One optimizer step of every fold of a ``FoldStack``:
     ``train_step(state, batch, generators, data=None)`` → (state,
     {"loss": [F, accum], "probs": [F, accum, B(, C)]}).
@@ -166,7 +176,13 @@ def make_fold_train_step(model, loss_fn: Callable, optimizer,
     ``fuse_accum`` one forward and backward over ``[F, accum·B]``, each
     fold's loss the mean of its per-micro masked means, as
     :func:`make_train_step`. ``loss_fn`` keeps the leading axes
-    (``losses.py``). The optimizer takes ``folds=F`` (per-fold clipping)."""
+    (``losses.py``). The optimizer takes ``folds=F`` (per-fold clipping).
+
+    ``data_group``: the ranks of a ``data`` mesh axis, each holding some rows
+    of every micro-batch. Each fold's loss is then its rows' share of the
+    whole micro-batch's masked mean (the denominator ``Σmask`` summed over
+    the group), and the gradients and losses are summed over the group, so
+    every rank steps as the one-process step does."""
     params = model.params
     folds = model.folds
 
@@ -175,6 +191,13 @@ def make_fold_train_step(model, loss_fn: Callable, optimizer,
             batch = fold_gather(data, batch)
         return model(batch, deterministic=False,
                      generators=generators), batch
+
+    def loss_of(logits, labels, mask):
+        if data_group is None:
+            return loss_fn(logits, labels, mask)
+        den = mask.float().sum(-1)
+        dist.all_reduce(den, group=data_group)
+        return loss_fn(logits, labels, mask, denominator=den)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generators, data=None):
@@ -186,7 +209,7 @@ def make_fold_train_step(model, loss_fn: Callable, optimizer,
             logits, flat = forward(flat, generators, data)
             logits = logits.reshape((folds, accum_steps, -1)
                                     + tuple(logits.shape[2:]))
-            losses, probs = loss_fn(
+            losses, probs = loss_of(
                 logits, flat["labels"].reshape(folds, accum_steps, -1),
                 flat["sample_mask"].reshape(folds, accum_steps, -1))
             losses.mean(dim=1).sum().backward()
@@ -196,7 +219,7 @@ def make_fold_train_step(model, loss_fn: Callable, optimizer,
             for a in range(accum_steps):
                 micro = {k: v[:, a] for k, v in batch.items()}
                 logits, micro = forward(micro, generators, data)
-                loss, pr = loss_fn(logits, micro["labels"],
+                loss, pr = loss_of(logits, micro["labels"],
                                    micro["sample_mask"])
                 loss.sum().backward()  # sums into .grad in micro order
                 losses.append(loss.detach())
@@ -204,6 +227,8 @@ def make_fold_train_step(model, loss_fn: Callable, optimizer,
             losses, probs = torch.stack(losses, 1), torch.stack(probs, 1)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params.values()]
+        if data_group is not None:
+            *grads, losses = _sum_over(data_group, grads + [losses])
         if accum_steps > 1 and not fuse_accum:
             grads = torch._foreach_div(grads, float(accum_steps))
         optimizer.step(params, dict(zip(params, grads)), state.opt_state)

@@ -31,9 +31,17 @@ switch).
 trains all folds at once as one fold-stacked model on the one card
 (``parallel/crossval_parallel.py``), with the same artifacts and a resume
 file ``crossval_resume.pt`` under ``model_path`` (unless
-``--no_model_checkpoints``); a mesh of more than one device raises
-(``parallel/mesh.py``). With ``--num_folds 0`` a fold mesh falls through to
-the sequential single-split run with a warning, as in the JAX package.
+``--no_model_checkpoints``). A mesh of more devices runs one process a
+device under ``torchrun``, which sets up the process group (``nccl`` on
+cards, ``gloo`` with ``--device cpu``)::
+
+    torchrun --nproc_per_node 8 -m meme_challenge_tpu_torch.train.train_uniter \
+        ... --num_folds -1 --mesh_shape 2,2,2 --mesh_axes fold,data,model
+
+(folds split over ranks, each fold's batch over ``data``, the encoder over
+``model``: ``parallel/fold_parallel.py``); without ``torchrun`` such a mesh
+raises ValueError. With ``--num_folds 0`` a fold mesh falls through to the
+sequential single-split run with a warning, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -58,7 +66,11 @@ from meme_challenge_tpu_torch.models.uniter import MemeUniter, init_meme_uniter
 from meme_challenge_tpu_torch.parallel.crossval_parallel import (
     train_crossval_fold_parallel,
 )
-from meme_challenge_tpu_torch.parallel.mesh import make_mesh
+from meme_challenge_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+    launched,
+    make_mesh,
+)
 from meme_challenge_tpu_torch.train.crossval_driver import train_crossval
 from meme_challenge_tpu_torch.train.trainer import Trainer
 
@@ -197,14 +209,34 @@ def main(argv=None):
         if not args.precise_attention:
             uniter_config = uniter_config.replace(
                 attention_score_dtype="bfloat16", dropout_bits_dtype="uint8")
-    # --mesh_shape 1 --mesh_axes fold → all folds train at once on the card
-    # (parallel/crossval_parallel.py); num_folds == 0 has no fold axis and
-    # falls through to the sequential single-split driver
+    # --mesh_shape 4,2 --mesh_axes fold,data → all folds train at once over
+    # the mesh (parallel/crossval_parallel.py), one process a device under
+    # torchrun; num_folds == 0 has no fold axis and falls through to the
+    # sequential single-split driver
     fold_parallel = (bool(config.mesh_shape) and "fold" in config.mesh_axes
                      and config.num_folds != 0)
+    mesh, started = None, False
     if fold_parallel:
-        make_mesh(config.mesh_shape, config.mesh_axes)  # raises if > 1 device
+        if launched() and not torch.distributed.is_initialized():
+            initialize_distributed(device.type)
+            started = True
+        # raises for more than one device without a process group
+        mesh = make_mesh(config.mesh_shape, config.mesh_axes, device.type)
+        if mesh.device_mesh is not None:
+            logger.info("process group: backend %s, world size %d, mesh %s",
+                        torch.distributed.get_backend(),
+                        torch.distributed.get_world_size(),
+                        ",".join("%s=%d" % a for a in zip(mesh.axis_names,
+                                                          mesh.shape)))
+    try:
+        return _run(config, uniter_config, args, device, fold_parallel, mesh)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
+
+def _run(config, uniter_config, args, device, fold_parallel, mesh):
+    """The fold-parallel driver over ``mesh`` or the sequential one."""
     os.makedirs(config.model_path, exist_ok=True)
     set_seed(config.seed)
     loader_funcs, test_loaders, trainer_factory = build_entry(
@@ -221,7 +253,7 @@ def main(argv=None):
             resume_path=(os.path.join(config.model_path,
                                       "crossval_resume.pt")
                          if not config.no_model_checkpoints else None),
-            device=device)
+            device=device, mesh=mesh)
     if config.mesh_shape and "fold" in config.mesh_axes:
         logger.warning("--mesh_shape given but num_folds=0 (no crossval): "
                        "falling back to the sequential single-split driver")

@@ -487,11 +487,11 @@ def test_blocked_seeds_are_per_fold():
 @pytest.mark.parametrize("shape,axes", [("2", "fold"), ("1,2", "fold,data"),
                                         ("1,2", "fold,model")])
 def test_mesh_the_port_cannot_run_raises(shape, axes):
-    """The CLI refuses, before it reads any data, a fold mesh of more than
-    one device or with a data or model axis above 1."""
+    """Without a process group the CLI refuses, before it reads any data, a
+    mesh of more than one device, and names torchrun."""
     from meme_challenge_tpu_torch.train import train_uniter
 
-    with pytest.raises(ValueError, match="Queue 1"):
+    with pytest.raises(ValueError, match="torchrun"):
         train_uniter.main(["--vocab_file", "unused.txt", "--device", "cpu",
                            "--num_folds", "-1", "--mesh_shape", shape,
                            "--mesh_axes", axes])

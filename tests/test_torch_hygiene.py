@@ -54,6 +54,7 @@ def test_importing_every_port_module_loads_no_jax():
             "meme_challenge_tpu_torch.parallel.mesh",
             "meme_challenge_tpu_torch.parallel.fold_parallel",
             "meme_challenge_tpu_torch.parallel.crossval_parallel",
+            "meme_challenge_tpu_torch.parallel.dryrun",
             "meme_challenge_tpu_torch.data.pretrain",
             "meme_challenge_tpu_torch.models.ot",
             "meme_challenge_tpu_torch.train.pretrain_init",
@@ -136,13 +137,14 @@ def test_resolve_device():
 
 def test_parallel_modules_import_no_jax_and_default_to_cuda():
     """parallel/*: no import statement of jax or of the JAX package, and
-    the fold-parallel driver runs on CUDA unless asked for the CPU."""
-    from meme_challenge_tpu_torch.parallel import crossval_parallel
+    the fold-parallel driver and the dry run run on CUDA unless asked for
+    the CPU."""
+    from meme_challenge_tpu_torch.parallel import crossval_parallel, dryrun
 
     parallel = os.path.join(PORT, "parallel")
     files = sorted(f for f in os.listdir(parallel) if f.endswith(".py"))
-    assert {"mesh.py", "fold_parallel.py", "crossval_parallel.py"} <= set(
-        files)
+    assert {"mesh.py", "fold_parallel.py", "crossval_parallel.py",
+            "dryrun.py"} <= set(files)
     for f in files:
         test_no_forbidden_import_statement(
             os.path.relpath(os.path.join(parallel, f), ROOT))
@@ -150,6 +152,10 @@ def test_parallel_modules_import_no_jax_and_default_to_cuda():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         crossval_parallel.train_crossval_fold_parallel(None, None, {})
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        dryrun.main(["--spawn", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.entry()
 
 
 def test_pretrain_cli_defaults_to_cuda_and_raises_without_card():
