@@ -2,6 +2,9 @@
 """Drive the PyTorch port (meme_challenge_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only        # the build and phase 3
+    python3 chip_smoke.py --uniter-large-only   # the build and phase 15
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --det-determinism
 
 Phases, each of which makes the script exit non-zero if it fails:
 
@@ -74,7 +77,7 @@ Phases, each of which makes the script exit non-zero if it fails:
    against the plain versions (the kernel phase's tolerances, the same
    zero positions), the pair-blocked call also against three separate
    launches with the per-fold seeds; (b) the recipe of phase 6 through the
-   CLI with ``--mesh_shape 1 --mesh_axes fold``, 2 epochs: every fold's
+   CLI with ``--mesh_shape 1 --mesh_axes fold``, 1 epoch: every fold's
    checkpoint, CSVs and metrics JSON, the ensemble CSVs, and the attention
    launches, exactly 12 × (fold-stacked micro-batches + eval batches)
    forward and 12 × micro-batches backward, with no factor of F, all on
@@ -166,13 +169,13 @@ Phases, each of which makes the script exit non-zero if it fails:
    peak, the clip + SGD update, peak memory, images/s, the loss
    trajectory; the step's device ms with its determinism repair (cuDNN's
    deterministic algorithms, scoped to the step's gradient pass) and
-   without it, in turns; a determinism diagnosis in a process of its own
-   (``--det-determinism``, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: the leaves
-   that differ between two identical gradient passes as the step ran
-   before the repair, with ``cudnn.deterministic``, and under
+   without it, in turns; then two identical gradient passes of the step
+   must give the same bits (gated). The determinism diagnosis runs alone,
+   with ``--det-determinism`` (the leaves that differ between two
+   identical gradient passes as the step ran before the repair, with
+   ``cudnn.deterministic``, and under
    ``torch.use_deterministic_algorithms``, the operations that raises or
-   warns on, the kernels it swaps, ROIAlign's backward alone); then two
-   identical gradient passes of the step must give the same bits (gated).
+   warns on, the kernels it swaps, ROIAlign's backward alone).
 14. Multi-device, run right after 9b: (a) 9b's recipe through the CLI in
    a process of its own under ``torchrun --standalone --nproc_per_node 1``
    with ``--mesh_shape 1,1,1 --mesh_axes fold,data,model`` (an ``nccl``
@@ -180,8 +183,33 @@ Phases, each of which makes the script exit non-zero if it fails:
    equal to 9b's plain ``--mesh_shape 1`` run's (ids, probabilities to the
    last written digit), the ensemble CSVs written, each epoch's ms an
    optimizer step of both runs side by side; (b)
-   ``parallel/dryrun.py --spawn 1`` on the card (the fold-parallel driver
-   of the dry run, content-checked CSVs, the ensemble search).
+   ``parallel/dryrun.py --spawn 1`` on the card, in a process of its own
+   beside (a)'s (the fold-parallel driver of the dry run, content-checked
+   CSVs, the ensemble search).
+15. UNITER-large (configs/uniter-large.json: 24 layers, hidden 1024, 16
+   heads of 64, through the CLI's loader, with the fused kernels), random
+   weights from seeds: (a) MemeUniter, 2 memes with padding, fp32,
+   dropout off, card against CPU: logits within 1e-4 relative, the loss
+   and every gradient within 1e-4 of the gradient's largest magnitude,
+   24 + 24 launches on ``mma_tf32x3``; (b) the four kernels at its shapes,
+   per-sample [16, 16, 160, 64] and pair-blocked [32, 16, 160, 64] (blocks
+   of 16 pairs), fp32 and bf16, rate 0 and 0.1, forward and backward
+   against the plain versions (phase 3's tolerances, the same zero
+   positions), with ms, bound and the library's ms; (c) the fine-tune CLI
+   for 1 epoch, fp32 per-sample and bf16 pair-blocked with --fuse_accum,
+   then serving the fp32 run's best checkpoint with --max_epoch 0: exact
+   launch counts (24 a forward or backward) on the dtype's tensor-core
+   body, finite losses, checkpoint, CSVs, metrics JSON, train and
+   inference memes/s; (d) one optimizer step measured as 9d, per-sample
+   fp32, bf16 --fuse_accum, fold-stacked at F 3 (remat "dots", fp32), and
+   the largest F that fits, reckoned from F 3's peak; (e) the embedding
+   repair's gate: two identical gradient passes bit-equal, each over a
+   lookup of more than 3 072 ids (UNITER-base MemeUniter with
+   --fuse_accum's 32 × 100 image type ids, UniterForPretraining's MRFR
+   over 32 × 100 mask ids, bert at 64 × 60 tokens), beside the leaves that
+   differ through ``F.embedding`` as before the repair.
+   The launches of (c) count in the kernels' record, and each kernel's
+   entry carries (b)'s figures under ``uniter_large``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -279,32 +307,32 @@ def device_ms(fn, iters: int = 20, reps: int = 5) -> tuple:
     return statistics.median(times), host
 
 
-def attention_bound_ms(dtype: str) -> tuple:
+def attention_bound_ms(dtype: str, batch: int = B, heads: int = H) -> tuple:
     """Least time for one launch: q, k, v read once, out written once, the
     fp32 key bias read once; 2·S·S·D multiply-adds twice per pair."""
     item = 4 if dtype == "float32" else 2
-    nbytes = 4 * B * H * S * D * item + B * S * 4
-    ops = 4 * B * H * S * S * D
+    nbytes = 4 * batch * heads * S * D * item + batch * S * 4
+    ops = 4 * batch * heads * S * S * D
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_bwd_bound_ms(dtype: str, batch: int) -> tuple:
+def attention_bwd_bound_ms(dtype: str, batch: int, heads: int = H) -> tuple:
     """Least time for one backward: q, k, v, dout read once, dq, dk, dv
     written once, the fp32 key bias read once; five products (s, dp, dv, dq,
     dk) of 2·S·S·D multiply-adds per pair."""
     item = 4 if dtype == "float32" else 2
-    nbytes = 7 * batch * H * S * D * item + batch * S * 4
-    ops = 10 * batch * H * S * S * D
+    nbytes = 7 * batch * heads * S * D * item + batch * S * 4
+    ops = 10 * batch * heads * S * S * D
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_inputs(torch, dtype, gen, batch=B):
+def attention_inputs(torch, dtype, gen, batch=B, heads=H):
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(batch, H, S, D, generator=gen,
+    q, k, v = (torch.randn(batch, heads, S, D, generator=gen,
                            device="cuda").to(dt) for _ in range(3))
     lens = torch.randint(20, S + 1, (batch,), generator=gen, device="cuda")
     mask = (torch.arange(S, device="cuda")[None] < lens[:, None]).float()
@@ -925,6 +953,65 @@ def check_outputs(run_dir: str, ckpt_name: str, synth: dict) -> dict:
     return metrics
 
 
+def serve_cli_run(torch, run_dir: str, ckpt: str, synth: dict, passlog, A,
+                  cfg, name: str, dtype: str, tag: str) -> dict:
+    """Inference through the port's CLI (``train_uniter.main`` with
+    --max_epoch 0) from the checkpoint ``ckpt`` of the model ``cfg`` (its
+    ``pallas_blocked`` picks kernel ``name``) in ``dtype``, into
+    ``run_dir``: launch counts (every layer of ``cfg`` once an eval batch)
+    and routes, the passes' memes, the CSVs and metrics JSON; returns the
+    launches of ``name``."""
+    from meme_challenge_tpu_torch.train import train_uniter
+
+    batch_size, layers = 16, cfg.num_hidden_layers
+    names = ("dev_seen", "test_seen", "test_unseen", "dev_seen", "dev_unseen")
+    n_batches = sum(-(-_n_lines(synth[n]) // batch_size) for n in names)
+    n_memes = sum(_n_lines(synth[n]) for n in names)
+    ckpt_name = os.path.basename(ckpt)
+    os.makedirs(run_dir)
+    os.link(ckpt, os.path.join(run_dir, ckpt_name))
+    cfg_path = os.path.join(run_dir, "uniter.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    argv = ["--data_path", synth["root"],
+            "--feature_path", synth["feature_dir"],
+            "--vocab_file", synth["vocab"], "--model_path", run_dir,
+            "--model_save_name", ckpt_name, "--max_epoch", "0",
+            "--num_folds", "0", "--batch_size", str(batch_size),
+            "--uniter_config", cfg_path]
+    if dtype == "bfloat16":
+        argv.append("--compute_bf16")
+    passlog.clear()
+    reset_launches(A)
+    t0 = time.time()
+    train_uniter.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(A.LAUNCHES)
+    by_route = check_route_counts(A, tag, dtype, (name,))
+    expected = layers * n_batches
+    others = sum(v for k, v in counts.items() if k != name)
+    memes = sum(n for n, _ in passlog.passes)
+    secs = sum(s for _, s in passlog.passes)
+    warm = passlog.passes[1:]
+    log("%s: CLI %.1f s, launches %d (expected %d = %d layers x %d eval "
+        "batches; by route %s), inference %d memes in %.4f s = %.1f memes/s "
+        "(after the first pass: %.1f memes/s)"
+        % (tag, wall, counts[name], expected, layers, n_batches, by_route,
+           memes, secs, memes / secs,
+           sum(n for n, _ in warm) / sum(s for _, s in warm)))
+    if counts[name] != expected or others != 0:
+        fail("%s: launch counts %s, expected %d of %s only"
+             % (tag, counts, expected, name))
+    if memes != n_memes:
+        fail("%s: inference passes covered %d memes, expected %d"
+             % (tag, memes, n_memes))
+    metrics = check_outputs(run_dir, ckpt_name, synth)
+    log("%s: 4 CSVs + metrics JSON, dev_seen AUROC %.4f"
+        % (tag, metrics["test"]["dev_seen"]["aucroc"]))
+    return {name: counts[name]}
+
+
 def inference_phase(torch, work: str, synth: dict, passlog) -> None:
     """Full-width UNITER-base inference through the port's CLI (--max_epoch
     0 from a saved checkpoint), each kernel in both dtypes: launch counts,
@@ -935,15 +1022,10 @@ def inference_phase(torch, work: str, synth: dict, passlog) -> None:
     from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
     from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
     from meme_challenge_tpu_torch.ops import attention as A
-    from meme_challenge_tpu_torch.train import train_uniter
     from meme_challenge_tpu_torch.train.checkpoint import ModelSaver
     from meme_challenge_tpu_torch.train.steps import to_device
 
-    batch_size, layers = 16, UniterConfig().num_hidden_layers
-    names = ("dev_seen", "test_seen", "test_unseen", "dev_seen", "dev_unseen")
-    n_batches = sum(-(-_n_lines(synth[n]) // batch_size) for n in names)
-    n_memes = sum(_n_lines(synth[n]) for n in names)
-
+    batch_size = 16
     ckpt_name = "uniter_base.ckpt"
     base_ckpt = os.path.join(work, ckpt_name)
     fused = UniterConfig(use_pallas_attention=True)
@@ -957,51 +1039,11 @@ def inference_phase(torch, work: str, synth: dict, passlog) -> None:
             ("fused_attention_blocked", "float32", True),
             ("fused_attention_blocked", "bfloat16", True))
     for name, dtype, blocked in runs:
-        run_dir = os.path.join(work, "%s_%s" % (name, dtype))
-        os.makedirs(run_dir)
-        os.link(base_ckpt, os.path.join(run_dir, ckpt_name))
-        cfg_path = os.path.join(run_dir, "uniter.json")
-        with open(cfg_path, "w") as f:
-            json.dump(UniterConfig(use_pallas_attention=True,
-                                   pallas_blocked=blocked).to_dict(), f)
-        argv = ["--data_path", synth["root"],
-                "--feature_path", synth["feature_dir"],
-                "--vocab_file", synth["vocab"], "--model_path", run_dir,
-                "--model_save_name", ckpt_name, "--max_epoch", "0",
-                "--num_folds", "0", "--batch_size", str(batch_size),
-                "--uniter_config", cfg_path]
-        if dtype == "bfloat16":
-            argv.append("--compute_bf16")
-        passlog.clear()
-        reset_launches(A)
-        t0 = time.time()
-        train_uniter.main(argv)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = dict(A.LAUNCHES)
-        by_route = check_route_counts(A, "inference %s %s" % (name, dtype),
-                                      dtype, (name,))
-        expected = layers * n_batches
-        others = sum(v for k, v in counts.items() if k != name)
-        memes = sum(n for n, _ in passlog.passes)
-        secs = sum(s for _, s in passlog.passes)
-        warm = passlog.passes[1:]
-        log("inference %s %s: CLI %.1f s, launches %d (expected %d = %d "
-            "layers x %d eval batches; by route %s), inference %d memes in "
-            "%.4f s = %.1f memes/s (after the first pass: %.1f memes/s)"
-            % (name, dtype, wall, counts[name], expected, layers, n_batches,
-               by_route,
-               memes, secs, memes / secs,
-               sum(n for n, _ in warm) / sum(s for _, s in warm)))
-        if counts[name] != expected or others != 0:
-            fail("launch counts %s, expected %d of %s only"
-                 % (counts, expected, name))
-        if memes != n_memes:
-            fail("inference passes covered %d memes, expected %d"
-                 % (memes, n_memes))
-        metrics = check_outputs(run_dir, ckpt_name, synth)
-        log("inference %s %s: 4 CSVs + metrics JSON, dev_seen AUROC %.4f"
-            % (name, dtype, metrics["test"]["dev_seen"]["aucroc"]))
+        serve_cli_run(torch, os.path.join(work, "%s_%s" % (name, dtype)),
+                      base_ckpt, synth, passlog, A,
+                      UniterConfig(use_pallas_attention=True,
+                                   pallas_blocked=blocked),
+                      name, dtype, "inference %s %s" % (name, dtype))
 
     # one batch's float32 logits: card (kernel) against CPU (plain version)
     ds = MemeDataset(synth["dev_seen"], feature_dir=synth["feature_dir"],
@@ -1044,89 +1086,103 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def finetune_cli_run(torch, work: str, synth: dict, passlog, A, cfg,
+                     name: str, dtype: str, fuse: bool, epochs: int,
+                     tag: str) -> tuple:
+    """One fine-tune through the port's CLI (the README recipe with
+    --num_folds 0, ``epochs`` epochs, random weights from seed 42) of the
+    model ``cfg`` (its ``pallas_blocked`` picks kernel ``name``), in
+    ``dtype``, with or without --fuse_accum. Checks the forward and
+    backward launch counts against the micro-batches it stepped (every
+    layer of ``cfg`` once a forward and a backward) and their routes,
+    finite epoch losses, the best checkpoint, the CSVs and the metrics JSON;
+    returns ({kernel: launches}, the run's directory)."""
+    from meme_challenge_tpu_torch.train import train_uniter
+
+    batch_size, layers = 16, cfg.num_hidden_layers
+    run_dir = os.path.join(work, tag.replace(" ", "_"))
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(run_dir, "uniter.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    ckpt_name = "finetune.ckpt"
+    vis = os.path.join(run_dir, "vis")
+    argv = ["--data_path", synth["root"],
+            "--feature_path", synth["feature_dir"],
+            "--vocab_file", synth["vocab"], "--model_path", run_dir,
+            "--model_save_name", ckpt_name, "--uniter_config", cfg_path,
+            "--max_epoch", str(epochs), "--num_folds", "0",
+            "--batch_size", str(batch_size),
+            "--gradient_accumulation", str(TRAIN_ACCUM),
+            "--confounder_repeat", "3", "--pos_wt", "1.8",
+            "--scheduler", "warmup_cosine", "--warmup_steps", "2",
+            "--lr", "3e-5", "--vis_path", vis]
+    if dtype == "bfloat16":
+        argv.append("--compute_bf16")
+    if fuse:
+        argv.append("--fuse_accum")
+    passlog.clear()
+    reset_launches(A)
+    t0 = time.time()
+    train_uniter.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(A.LAUNCHES)
+    bwd = name + "_bwd"
+    by_route = check_route_counts(A, tag, dtype, (name, bwd))
+    # every micro-batch of an epoch is stepped, the short last group
+    # padded to TRAIN_ACCUM; --fuse_accum runs one forward per group
+    groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
+                 for n, _ in passlog.epochs)
+    train_fwd = groups * (1 if fuse else TRAIN_ACCUM)
+    eval_batches = sum(_ceil(n, batch_size) for n, _ in passlog.passes)
+    want = {name: layers * (train_fwd + eval_batches),
+            bwd: layers * train_fwd}
+    log("%s: CLI %.1f s, %d epochs; launches forward %d (expected %d = %d "
+        "layers x (%d train + %d eval forwards)), backward %d (expected %d); "
+        "by route %s"
+        % (tag, wall, len(passlog.epochs), counts[name], want[name], layers,
+           train_fwd, eval_batches, counts[bwd], want[bwd], by_route))
+    for i, (n, secs) in enumerate(passlog.epochs, 1):
+        log("%s: epoch %d, %d memes in %.4f s = %.1f memes/s"
+            % (tag, i, n, secs, n / secs))
+    if len(passlog.epochs) != epochs or any(
+            counts[k] != want.get(k, 0) for k in counts):
+        fail("%s: launch counts %s, expected %s, epochs %s"
+             % (tag, counts, want, passlog.epochs))
+    with open(os.path.join(vis, "finetune", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    losses = [r["value"] for r in scalars if r["name"] == "Train/Epoch_Loss"]
+    if len(losses) != epochs or not all(math.isfinite(x) for x in losses):
+        fail("%s: epoch losses %s" % (tag, losses))
+    if not os.path.isfile(os.path.join(run_dir, ckpt_name)):
+        fail("%s: no best checkpoint" % tag)
+    metrics = check_outputs(run_dir, ckpt_name, synth)
+    log("%s: epoch losses %s, best checkpoint, 4 CSVs + metrics JSON, dev "
+        "AUROC %.4f" % (tag, ["%.4f" % x for x in losses],
+                        metrics["dev"]["aucroc"]))
+    return {name: counts[name], bwd: counts[bwd]}, run_dir
+
+
 def train_phase(torch, work: str, synth: dict, passlog) -> dict:
     """Full-width UNITER-base fine-tunes through the port's CLI (the README
     recipe with --num_folds 0, 2 epochs, dropout 0.1 / 0.1 as
     configs/uniter-base.json, random weights from seed 42): the per-sample
     kernel in fp32 and with --compute_bf16, the pair-blocked kernel with
-    --fuse_accum in bf16 and fp32. Checks the forward and backward launch
-    counts against the micro-batches each run stepped, finite losses, the
-    best checkpoint, the CSVs and the metrics JSON; returns the launches of
-    each (kernel, dtype)."""
+    --fuse_accum in bf16 and fp32 (``finetune_cli_run``); returns the
+    launches of each (kernel, dtype)."""
     from meme_challenge_tpu_torch.core.config import UniterConfig
     from meme_challenge_tpu_torch.ops import attention as A
-    from meme_challenge_tpu_torch.train import train_uniter
 
-    batch_size, layers = 16, UniterConfig().num_hidden_layers
     launches = {}
     for name, dtype, blocked, fuse in TRAIN_RUNS:
-        tag = "%s %s%s" % (name, dtype, " fuse_accum" if fuse else "")
-        run_dir = os.path.join(work, "train_%s_%s" % (name, dtype))
-        os.makedirs(run_dir)
-        cfg_path = os.path.join(run_dir, "uniter.json")
-        with open(cfg_path, "w") as f:
-            json.dump(UniterConfig(use_pallas_attention=True,
-                                   pallas_blocked=blocked).to_dict(), f)
-        ckpt_name = "finetune.ckpt"
-        vis = os.path.join(run_dir, "vis")
-        argv = ["--data_path", synth["root"],
-                "--feature_path", synth["feature_dir"],
-                "--vocab_file", synth["vocab"], "--model_path", run_dir,
-                "--model_save_name", ckpt_name, "--uniter_config", cfg_path,
-                "--max_epoch", "2", "--num_folds", "0",
-                "--batch_size", str(batch_size),
-                "--gradient_accumulation", str(TRAIN_ACCUM),
-                "--confounder_repeat", "3", "--pos_wt", "1.8",
-                "--scheduler", "warmup_cosine", "--warmup_steps", "2",
-                "--lr", "3e-5", "--vis_path", vis]
-        if dtype == "bfloat16":
-            argv.append("--compute_bf16")
-        if fuse:
-            argv.append("--fuse_accum")
-        passlog.clear()
-        reset_launches(A)
-        t0 = time.time()
-        train_uniter.main(argv)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = dict(A.LAUNCHES)
-        bwd = name + "_bwd"
-        by_route = check_route_counts(A, "train " + tag, dtype, (name, bwd))
-        launches[(name, dtype)], launches[(bwd, dtype)] = (counts[name],
-                                                           counts[bwd])
-        # every micro-batch of an epoch is stepped, the short last group
-        # padded to TRAIN_ACCUM; --fuse_accum runs one forward per group
-        groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
-                     for n, _ in passlog.epochs)
-        train_fwd = groups * (1 if fuse else TRAIN_ACCUM)
-        eval_batches = sum(_ceil(n, batch_size) for n, _ in passlog.passes)
-        want = {name: layers * (train_fwd + eval_batches),
-                bwd: layers * train_fwd}
-        log("train %s: CLI %.1f s, %d epochs; launches forward %d (expected "
-            "%d = %d layers x (%d train + %d eval forwards)), backward %d "
-            "(expected %d); by route %s"
-            % (tag, wall, len(passlog.epochs), counts[name], want[name],
-               layers, train_fwd, eval_batches, counts[bwd], want[bwd],
-               by_route))
-        for i, (n, secs) in enumerate(passlog.epochs, 1):
-            log("train %s: epoch %d, %d memes in %.4f s = %.1f memes/s"
-                % (tag, i, n, secs, n / secs))
-        if len(passlog.epochs) != 2 or any(
-                counts[k] != want.get(k, 0) for k in counts):
-            fail("train %s: launch counts %s, expected %s, epochs %s"
-                 % (tag, counts, want, passlog.epochs))
-        with open(os.path.join(vis, "finetune", "scalars.jsonl")) as f:
-            scalars = [json.loads(line) for line in f]
-        losses = [r["value"] for r in scalars
-                  if r["name"] == "Train/Epoch_Loss"]
-        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
-            fail("train %s: epoch losses %s" % (tag, losses))
-        if not os.path.isfile(os.path.join(run_dir, ckpt_name)):
-            fail("train %s: no best checkpoint" % tag)
-        metrics = check_outputs(run_dir, ckpt_name, synth)
-        log("train %s: epoch losses %s, best checkpoint, 4 CSVs + metrics "
-            "JSON, dev AUROC %.4f" % (tag, ["%.4f" % x for x in losses],
-                                      metrics["dev"]["aucroc"]))
+        tag = "train %s %s%s" % (name, dtype, " fuse_accum" if fuse else "")
+        counts, _ = finetune_cli_run(
+            torch, work, synth, passlog, A,
+            UniterConfig(use_pallas_attention=True, pallas_blocked=blocked),
+            name, dtype, fuse, 2, tag)
+        for kernel, n in counts.items():
+            launches[(kernel, dtype)] = n
     return launches
 
 
@@ -1595,6 +1651,9 @@ def ensemble_scale_phase(torch) -> None:
 # ------------------------------------------------------------------ phase 9
 
 FOLDS = 3
+# epochs of phase 9b's recipe and of phase 14a's, which must equal it: one,
+# as phase 6 runs a fold (each epoch writes a ≈ 4 GB resume file)
+FOLD_CLI_EPOCHS = 1
 CARD = [""]  # the nvidia-smi name and power limit, beside every number
 
 
@@ -1681,8 +1740,8 @@ def fold_kernel_checks(torch, A) -> None:
 
 def fold_cli_argv(synth: dict, run_dir: str) -> list:
     """The arguments of phase 9b's fold-parallel recipe (full-width
-    UNITER-base, fp32, per-sample kernel, 2 epochs), writing into
-    ``run_dir``, without the mesh flags."""
+    UNITER-base, fp32, per-sample kernel, FOLD_CLI_EPOCHS epochs), writing
+    into ``run_dir``, without the mesh flags."""
     from meme_challenge_tpu_torch.core.config import UniterConfig
 
     cfg_path = os.path.join(run_dir, "uniter.json")
@@ -1692,7 +1751,8 @@ def fold_cli_argv(synth: dict, run_dir: str) -> list:
             "--feature_path", synth["feature_dir"],
             "--vocab_file", synth["vocab"], "--model_path", run_dir,
             "--model_save_name", "cv.ckpt", "--uniter_config", cfg_path,
-            "--max_epoch", "2", "--num_folds", "-1", "--crossval_use_dev",
+            "--max_epoch", str(FOLD_CLI_EPOCHS), "--num_folds", "-1",
+            "--crossval_use_dev",
             "--crossval_dev_size", "16", "--batch_size", "16",
             "--gradient_accumulation", str(TRAIN_ACCUM),
             "--confounder_repeat", "3", "--pos_wt", "1.8",
@@ -1739,20 +1799,37 @@ def multidevice_phase(torch, work: str, synth: dict, passlog) -> None:
     recipe repeats bit for bit since the fold-stacked embedding lookups sum
     their gradients in a fixed order). Each epoch's ms an optimizer step of
     the two runs side by side (the collectives' overhead at world size 1).
-    (b) The dry run (``parallel/dryrun.py --spawn 1``) on the card."""
+    (b) The dry run (``parallel/dryrun.py --spawn 1``) on the card, in a
+    process of its own beside (a)'s."""
     plain_ms = _step_ms(passlog.epochs, passlog.fold_steps)
     run_dir = os.path.join(work, "multidevice")
     os.makedirs(run_dir)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    # (b) starts first and runs beside (a), each in its own process on the
+    # card: their start-up overlaps (a's step ms carry its first epoch's
+    # warm-up either way)
+    dry_log = os.path.join(work, "dryrun.log")
     t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "1", "-m",
-         "meme_challenge_tpu_torch.train.train_uniter",
-         *fold_cli_argv(synth, run_dir), "--mesh_shape", "1,1,1",
-         "--mesh_axes", "fold,data,model"],
-        env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT, capture_output=True,
-        text=True, timeout=900)
-    wall = time.time() - t0
+    with open(dry_log, "w") as out:
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "meme_challenge_tpu_torch.parallel.dryrun",
+             "--spawn", "1"], env=env, cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT, text=True)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m",
+             "meme_challenge_tpu_torch.train.train_uniter",
+             *fold_cli_argv(synth, run_dir), "--mesh_shape", "1,1,1",
+             "--mesh_axes", "fold,data,model"],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        wall = time.time() - t0
+        dry_rc = dry.wait(timeout=600)
+        both = time.time() - t0
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
     text = proc.stdout + proc.stderr
     if proc.returncode != 0:
         fail("multi-device 14a: torchrun train_uniter rc %d:\n%s"
@@ -1774,8 +1851,8 @@ def multidevice_phase(torch, work: str, synth: dict, passlog) -> None:
         "multi-device 14a: torchrun, 1 process, %s group of %s rank, mesh "
         "%s: %d fold CSVs against 9b's plain --mesh_shape 1 run, worst "
         "probability difference %d units of 1e-6 in %d rows (gate: 0); %d "
-        "ensemble CSVs; command %.1f s; ms an optimizer step by epoch: nccl "
-        "world size 1 %s, plain (9b, in process) %s" % (
+        "ensemble CSVs; command %.1f s (beside 14b); ms an optimizer step by "
+        "epoch: nccl world size 1 %s, plain (9b, in process) %s" % (
             group.group(1), group.group(2), group.group(3), n, worst, rows,
             len(ens), wall, nccl_ms, plain_ms)))
     if worst > 0 or not n or len(ens) != 4:
@@ -1783,25 +1860,22 @@ def multidevice_phase(torch, work: str, synth: dict, passlog) -> None:
              "%d units of 1e-6 in %d rows, ensemble CSVs %s)"
              % (worst, rows, ens))
 
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "meme_challenge_tpu_torch.parallel.dryrun",
-         "--spawn", "1"], env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT,
-        capture_output=True, text=True, timeout=600)
-    ok = [ln for ln in proc.stdout.splitlines()
+    with open(dry_log) as f:
+        dry_out = f.read()
+    ok = [ln for ln in dry_out.splitlines()
           if ln.startswith("dryrun_multichip OK")]
-    log(on_card("multi-device 14b: dryrun --spawn 1 on the card in %.1f s: "
-                "%s" % (time.time() - t0, ok)))
-    if proc.returncode != 0 or not ok:
+    log(on_card("multi-device 14b: dryrun --spawn 1 on the card beside 14a, "
+                "both done in %.1f s: %s" % (both, ok)))
+    if dry_rc != 0 or not ok:
         fail("multi-device 14b: the dry run failed (rc %d):\n%s"
-             % (proc.returncode, (proc.stdout + proc.stderr)[-3000:]))
+             % (dry_rc, dry_out[-3000:]))
 
 
 def fold_cli_phase(torch, work: str, synth: dict, passlog,
                    seq_epochs: list) -> dict:
     """Phase 9b: the crossval phase's recipe through the CLI with
-    --mesh_shape 1 --mesh_axes fold, 2 epochs, at full width, fp32,
-    per-sample kernel: every fold's checkpoint, CSVs and metrics JSON, the
+    --mesh_shape 1 --mesh_axes fold, FOLD_CLI_EPOCHS epochs, at full width,
+    fp32, per-sample kernel: every fold's checkpoint, CSVs and metrics JSON, the
     ensemble CSVs (the device EA ran), and the launches: 12 layers x
     (fold-stacked micro-batches + eval batches) forward and 12 x
     micro-batches backward, no factor of F, all on mma_tf32x3. Returns the
@@ -1836,7 +1910,7 @@ def fold_cli_phase(torch, work: str, synth: dict, passlog,
         "eval batches)), backward %d (expected %d); by route %s"
         % (n_folds, len(passlog.fold_steps), wall, counts[name], want[name],
            layers, micro, evals, counts[bwd], want[bwd], by_route)))
-    if not (n_folds >= 2 and len(passlog.fold_steps) == 2
+    if not (n_folds >= 2 and len(passlog.fold_steps) == FOLD_CLI_EPOCHS
             and all(counts[k] == want.get(k, 0) for k in counts)):
         fail("fold-parallel: %d folds, epochs %s, launch counts %s, "
              "expected %s" % (n_folds, passlog.fold_steps, counts, want))
@@ -1972,10 +2046,11 @@ def fold_grad_check(torch, synth: dict) -> None:
 
 
 def _measure_step(torch, one, memes: int, tag: str, base: int,
-                  setting: str = "Adam, remat dots, fp32") -> None:
+                  setting: str = "Adam, remat dots, fp32") -> dict:
     """Wall and host-issue ms (medians of 3 after one warm-up step), the
     peak of allocated memory above ``base``, and one profiled step's
-    kernel time, idle share, launches and host time by operator."""
+    kernel time, idle share, launches and host time by operator; returns
+    the wall ms and the GiB held between steps and at the peak."""
     one()
     torch.cuda.synchronize()
     static = (torch.cuda.memory_allocated() - base) / 2 ** 30
@@ -2026,6 +2101,7 @@ def _measure_step(torch, one, memes: int, tag: str, base: int,
            prof_line,
            static, peak,
            torch.cuda.get_device_properties(0).total_memory / 2 ** 30)))
+    return {"wall_ms": wall_ms, "static_gib": static, "peak_gib": peak}
 
 
 def fold_step_phase(torch, synth: dict) -> None:
@@ -3906,22 +3982,6 @@ def det_determinism_diagnosis(torch) -> dict:
     return out
 
 
-def det_determinism_subprocess() -> dict:
-    """:func:`det_determinism_diagnosis` in a child process with
-    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (cuBLAS's deterministic workspace);
-    its settings end with it."""
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--det-determinism"], env=env, cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("DET_DETERMINISM ")]
-    if proc.returncode != 0 or not lines:
-        fail("detector training 13c: the determinism diagnosis failed (rc "
-             "%d): %s" % (proc.returncode, proc.stderr[-2000:]))
-    return json.loads(lines[-1][len("DET_DETERMINISM "):])
-
-
 def det_train_time_phase(torch, cfg, state, images) -> None:
     """Phase 13c: where a step's time goes, at ``DetectorConfig()`` on one
     fixed 600 × 800 batch (64 proposals): DET_TRAIN_STEPS warm-up and
@@ -3930,11 +3990,11 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
     share, launches), host syncs inside a step (``set_sync_debug_mode``),
     peak memory above the weights and the optimizer state, ROIAlign's
     forward and backward ms and their peak, and whether two identical
-    gradient passes of the step give the same bits (gated), after the
-    determinism diagnosis in a process of its own
-    (:func:`det_determinism_diagnosis`, printed). The step's device ms with
-    its determinism repair (``deterministic_cudnn``) and without it, in
-    turns. One ``breakdown detector_train`` line."""
+    gradient passes of the step give the same bits (gated; the diagnosis
+    of what does not repeat, :func:`det_determinism_diagnosis`, runs alone
+    with ``--det-determinism``). The step's device ms with its determinism
+    repair (``deterministic_cudnn``) and without it, in turns. One
+    ``breakdown detector_train`` line."""
     import warnings
 
     from meme_challenge_tpu_torch.core.seeding import dropout_generator
@@ -4003,9 +4063,8 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
         finally:
             detector_train.deterministic_cudnn = scoped
 
-    # ROIAlign alone at the step's shapes, and the determinism of a pass:
-    # the diagnosis names what does not repeat, then the gate
-    diag = det_determinism_subprocess()
+    # the determinism of a pass (the gate), and ROIAlign alone at the
+    # step's shapes
     draws = step.draw(_n_anchors(step, batch),
                       dropout_generator(DET_SEED, 0, "cuda"))
     losses, aux = step.losses(batch, draws, aux=True)
@@ -4050,20 +4109,6 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
                     warm, n, DET_TRAIN_LR, totals,
                     [round(v["rpn_box"], 4) for v in values],
                     [round(v["roi_box"], 4) for v in values])))
-    log(on_card("detector training 13c: determinism diagnosis (one "
-                "gradient pass twice, in a process of its own): leaves that "
-                "differ as the step ran before its repair %d of %d (%s); "
-                "with cudnn.deterministic %d; under "
-                "use_deterministic_algorithms %d, raised %s, warned %s; "
-                "kernels it swaps out %s, in %s; ROIAlign's backward alone "
-                "repeats: %s" % (
-                    diag["default"]["n"], diag["default"]["of"],
-                    diag["default"]["first"][:3],
-                    diag["cudnn_deterministic"]["n"],
-                    diag["deterministic_algorithms"]["n"], diag["raised"],
-                    diag["warned"], diag["kernels_swapped_out"],
-                    diag["kernels_swapped_in"],
-                    diag["roi_align_backward_repeats"])))
     log(on_card("detector training 13c: host syncs inside a step: %d %s; "
                 "two identical gradient passes of the step bit-equal: %s "
                 "(%d of %d leaves differ)" % (
@@ -4095,6 +4140,414 @@ def det_train_time_phase(torch, cfg, state, images) -> None:
     if differ:
         fail("detector training 13c: two identical gradient passes differ "
              "in %d leaves: %s" % (len(differ), differ[:4]))
+
+
+# ------------------------------------------------------------- UNITER-large
+
+LARGE_JSON = os.path.join(ROOT, "configs", "uniter-large.json")
+LARGE_H = 16  # UNITER-large's heads: pair blocks of 16 at B 16 and B 32
+# phase 15c's CLI runs: (kernel, dtype, pallas_blocked, --fuse_accum), the
+# two shapes of the JAX package's UNITER-large step (bench.py:822-856)
+LARGE_RUNS = (("fused_attention", "float32", False, False),
+              ("fused_attention_blocked", "bfloat16", True, True))
+LARGE_FOLDS = 3
+# phase 15e: the lookups above PyTorch's 3 072-id threshold of the atomic
+# embedding backward
+REPEAT_IDS = 3072
+
+
+def large_config(**fields):
+    """configs/uniter-large.json through the CLI's loader, with the fused
+    kernels and ``fields``."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+
+    cfg = UniterConfig.from_json_file(LARGE_JSON).replace(
+        use_pallas_attention=True, **fields)
+    if (cfg.num_hidden_layers, cfg.hidden_size, cfg.num_attention_heads,
+            cfg.head_dim) != (24, 1024, LARGE_H, D):
+        fail("%s is not UNITER-large: %s" % (LARGE_JSON, cfg))
+    return cfg
+
+
+def large_parity_phase(torch, synth: dict, A) -> None:
+    """Phase 15a: MemeUniter at UNITER-large's full width (random weights
+    from seed 15 on the card, copied to the CPU), 2 memes with padding,
+    fp32, dropout off: logits within LOGIT_TOL relative, the bce_logits
+    loss (pos_wt 1.8) and every gradient within GRAD_TOL, the card through
+    the kernels (24 forward + 24 backward launches on mma_tf32x3) and the
+    CPU through their plain versions."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.seeding import torch_generator
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+
+    cfg = large_config(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    batch = _train_dataset(synth).batch([0, 1])
+    batch["sample_mask"] = np.ones(2, np.int32)
+    card = init_meme_uniter(cfg, 1, "cuda", torch_generator(15, "cuda"))
+    reset_launches(A)
+    _card_vs_cpu(torch, "uniter-large 15a: MemeUniter, kernels on the card, "
+                 "plain versions on the CPU,", card, batch,
+                 make_loss_fn("bce_logits", 1.8), grads=True)
+    by_route = check_route_counts(A, "uniter-large 15a", "float32",
+                                  ("fused_attention", "fused_attention_bwd"))
+    want = cfg.num_hidden_layers
+    if (A.LAUNCHES["fused_attention"], A.LAUNCHES["fused_attention_bwd"]) \
+            != (want, want):
+        fail("uniter-large 15a: launches %s, expected %d forward + %d "
+             "backward" % (dict(A.LAUNCHES), want, want))
+    log("uniter-large 15a: launches by route %s" % by_route)
+    del card
+
+
+def large_kernel_phase(torch, A) -> dict:
+    """Phase 15b: the four kernels at UNITER-large's shapes, per-sample
+    [16, 16, 160, 64] and pair-blocked [32, 16, 160, 64] (--fuse_accum's
+    rows, blocks of 16 pairs), fp32 and bf16, rate 0 and 0.1, forward and
+    backward against the plain versions at the kernel phase's tolerances
+    (TOL; the backward relative to each gradient's largest magnitude), the
+    same zero positions under dropout (one-hot v windows for the forward,
+    one-hot dout windows through dv for the backward), each launch on its
+    dtype's tensor-core body. Times as the kernel phase takes them: the
+    kernel at rate 0 and 0.1, its plain version, torch's
+    scaled_dot_product_attention (the yardstick) and the bound at these
+    shapes. Returns them by (kernel, dtype)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    scale, rate = 1.0 / D ** 0.5, 0.1
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for name, wrapper, plain, batch in (
+            ("fused_attention", A.fused_attention, A.fused_attention_plain,
+             B),
+            ("fused_attention_blocked", A.fused_attention_blocked,
+             A.fused_attention_blocked_plain, 2 * B)):
+        blocked = name.endswith("blocked")
+        n_seeds = (A.blocked_seed_count(batch, LARGE_H) if blocked
+                   else batch)
+        group = A._largest_block(batch * LARGE_H) if blocked else LARGE_H
+        if blocked and group != 16:
+            fail("uniter-large 15b: blocks of %d pairs, expected 16" % group)
+        bwd = name + "_bwd"
+        for dtype in ("float32", "bfloat16"):
+            want = main_path_route(dtype)
+            q, k, v, bias = attention_inputs(torch, dtype, gen, batch,
+                                             LARGE_H)
+            do = torch.randn(q.shape, generator=gen,
+                             device="cuda").to(q.dtype)
+            seeds = torch.randint(0, 2 ** 31 - 1, (n_seeds,), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            err_fwd, err_bwd, rel_bwd, routes = 0.0, 0.0, 0.0, set()
+            for r in (0.0, rate):
+                out, route = route_taken(A, name, lambda: wrapper(
+                    q, k, v, bias, scale, r, seeds))
+                ref = plain(q, k, v, bias, scale, r, seeds)
+                err_fwd = max(err_fwd, (out.float() - ref.float()).abs()
+                              .max().item())
+                got, bwd_route = route_taken(A, bwd, lambda: kernel_grads(
+                    torch, wrapper, q, k, v, bias, do, scale, r, seeds))
+                e_abs, e_rel = _rel_err(
+                    torch, got, A.fused_attention_bwd_plain(
+                        q, k, v, bias, do, scale, r, seeds, group))
+                err_bwd, rel_bwd = max(err_bwd, e_abs), max(rel_bwd, e_rel)
+                routes |= {route, bwd_route}
+            zeros_fwd = zeros_bwd = True
+            for c in (0, 64, 96):
+                probe = torch.zeros_like(v)
+                d_idx = torch.arange(D, device="cuda")
+                probe[:, :, c + d_idx, d_idx] = 1
+                zeros_fwd &= bool(torch.equal(
+                    wrapper(q, k, probe, bias, scale, rate, seeds) == 0,
+                    plain(q, k, probe, bias, scale, rate, seeds) == 0))
+                zeros_bwd &= bool(torch.equal(
+                    kernel_grads(torch, wrapper, q, k, v, bias, probe, scale,
+                                 rate, seeds)[2] == 0,
+                    A.fused_attention_bwd_plain(q, k, v, bias, probe, scale,
+                                                rate, seeds, group)[2] == 0))
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            ok = (err_fwd <= tol and rel_bwd <= tol and zeros_fwd
+                  and zeros_bwd and routes == {want})
+            # times: the forward, then the backward through autograd
+            mask = bias.to(q.dtype)
+            fwd = dict(
+                ms=device_ms(lambda: wrapper(q, k, v, bias, scale))[0],
+                ms_dropout=device_ms(lambda: wrapper(q, k, v, bias, scale,
+                                                     rate, seeds))[0],
+                plain_ms=device_ms(lambda: plain(q, k, v, bias, scale))[0],
+                library_ms=device_ms(lambda: sdpa(
+                    q, k, v, attn_mask=mask, scale=scale))[0],
+                library_ms_dropout=device_ms(lambda: sdpa(
+                    q, k, v, attn_mask=mask, dropout_p=rate,
+                    scale=scale))[0])
+            fwd["bound_ms"], fwd["bound_by"] = attention_bound_ms(
+                dtype, batch, LARGE_H)
+            back = {}
+            for r, key in ((0.0, "ms"), (rate, "ms_dropout")):
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = wrapper(*leaves, bias, scale, r, seeds)
+                back[key] = device_ms(lambda: torch.autograd.grad(
+                    o, leaves, do, retain_graph=True))[0]
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = sdpa(*leaves, attn_mask=mask, dropout_p=r, scale=scale)
+                back["library_" + key] = device_ms(
+                    lambda: torch.autograd.grad(o, leaves, do,
+                                                retain_graph=True))[0]
+            back["plain_ms"] = device_ms(lambda: A.fused_attention_bwd_plain(
+                q, k, v, bias, do, scale, 0.0, None, group))[0]
+            back["bound_ms"], back["bound_by"] = attention_bwd_bound_ms(
+                dtype, batch, LARGE_H)
+            for kernel, t, err in ((name, fwd, err_fwd), (bwd, back,
+                                                          err_bwd)):
+                results[(kernel, dtype)] = dict(t, max_abs_err=err,
+                                                batch=batch, heads=LARGE_H)
+                log(on_card(
+                    "uniter-large 15b kernel %s %s at [%d, %d, %d, %d] (%s): "
+                    "ms=%.4f ms_rate%.1f=%.4f plain_ms=%.4f library_ms=%.4f "
+                    "library_ms_rate%.1f=%.4f bound_ms=%.4f (%s)"
+                    % (kernel, dtype, batch, LARGE_H, S, D, want, t["ms"],
+                       rate, t["ms_dropout"], t["plain_ms"],
+                       t["library_ms"], rate, t["library_ms_dropout"],
+                       t["bound_ms"], t["bound_by"])))
+            log(on_card(
+                "uniter-large 15b kernels %s %s at B %d, H %d (seeds %d, "
+                "block %d): forward max_abs_err %.3g, backward relative "
+                "error %.3g (tol %g); zero positions equal: forward %s, "
+                "backward %s; routes %s" % (
+                    name, dtype, batch, LARGE_H, n_seeds, group, err_fwd,
+                    rel_bwd, tol, zeros_fwd, zeros_bwd, sorted(routes))))
+            if not ok:
+                fail("uniter-large 15b: kernel %s %s disagrees with its "
+                     "plain version" % (name, dtype))
+    return results
+
+
+def large_cli_phase(torch, work: str, synth: dict, passlog, A) -> dict:
+    """Phase 15c: UNITER-large fine-tunes through the port's CLI
+    (``finetune_cli_run``, 1 epoch: fp32 per-sample, and bf16 pair-blocked
+    with --fuse_accum), then serving from the fp32 run's best checkpoint
+    (``serve_cli_run``): exact launch counts (24 a forward or backward) on
+    the dtype's tensor-core body, finite losses, the best checkpoint, the
+    CSVs and metrics JSON, train and inference memes/s. Returns the
+    launches by (kernel, dtype)."""
+    launches = {}
+    fp32_dir = None
+    for name, dtype, blocked, fuse in LARGE_RUNS:
+        counts, run_dir = finetune_cli_run(
+            torch, work, synth, passlog, A, large_config(
+                pallas_blocked=blocked), name, dtype, fuse, 1,
+            "uniter-large 15c train %s %s%s" % (
+                name, dtype, " fuse_accum" if fuse else ""))
+        for kernel, n in counts.items():
+            launches[(kernel, dtype)] = n
+        if dtype == "float32":
+            fp32_dir = run_dir
+    counts = serve_cli_run(
+        torch, os.path.join(work, "uniter_large_serve"),
+        os.path.join(fp32_dir, "finetune.ckpt"), synth, passlog, A,
+        large_config(), "fused_attention", "float32",
+        "uniter-large 15c serve fused_attention float32")
+    launches[("fused_attention", "float32")] += counts["fused_attention"]
+    return launches
+
+
+def large_step_phase(torch, synth: dict) -> None:
+    """Phase 15d: one UNITER-large optimizer step (accumulation 2 × batch
+    16, Adam with bf16 moments, global-norm clipping, dropout on) measured
+    as phase 9d: per-sample fp32; bf16 pair-blocked with --fuse_accum; and
+    fold-stacked at F 3 (remat "dots", fp32). The largest F that fits is
+    reckoned from F 3's peak, a third of it a fold."""
+    from meme_challenge_tpu_torch.core.config import TrainConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        fold_dropout_generators,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.models.uniter import (
+        FoldStack,
+        init_meme_uniter,
+    )
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+    from meme_challenge_tpu_torch.train.steps import (
+        TrainState,
+        create_train_state,
+        make_fold_train_step,
+        make_train_step,
+    )
+
+    ds = _train_dataset(synth)
+    c = TrainConfig()
+    loss_fn = make_loss_fn("bce_logits", 1.8)
+
+    def optimizer(folds):
+        return Optimizer("adam", 3e-5, lambda step: 1.0, beta1=c.beta1,
+                         beta2=c.beta2, weight_decay=c.weight_decay,
+                         max_grad_norm=c.max_grad_norm,
+                         mu_dtype=c.adam_mu_dtype, nu_dtype=c.adam_nu_dtype,
+                         folds=folds)
+
+    bf16 = dict(dtype="bfloat16", attention_score_dtype="bfloat16",
+                dropout_bits_dtype="uint8")
+    batch = {k: v[0] for k, v in _fold_batches(torch, ds, 1,
+                                               TRAIN_ACCUM).items()}
+    for tag, cfg, fuse, setting in (
+            ("per-sample", large_config(), False, "Adam, fp32"),
+            ("pair-blocked --fuse_accum", large_config(
+                pallas_blocked=True, **bf16), True, "Adam, bf16")):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = init_meme_uniter(cfg, 1, "cuda", torch_generator(0, "cuda"))
+        opt = optimizer(0)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, loss_fn, opt, accum_steps=TRAIN_ACCUM,
+                               fuse_accum=fuse)
+        _measure_step(torch, lambda: step(state, batch, dropout_generator(
+            43, state.step, "cuda")), TRAIN_ACCUM * 16,
+            "uniter-large 15d step, %s, %.1f M parameters," % (
+                tag, sum(p.numel() for p in model.parameters()) / 1e6),
+            base, setting)
+        del model, opt, state, step
+    del batch
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = large_config(remat=True, remat_policy="dots")
+    stack = FoldStack.from_models(
+        (init_meme_uniter(cfg, 1, "cuda", torch_generator(f, "cuda"))
+         for f in range(LARGE_FOLDS)), LARGE_FOLDS)
+    opt = optimizer(LARGE_FOLDS)
+    state = TrainState(stack, opt.init(stack.params))
+    step = make_fold_train_step(stack, loss_fn, opt, accum_steps=TRAIN_ACCUM)
+    batch = _fold_batches(torch, ds, LARGE_FOLDS, TRAIN_ACCUM)
+    m = _measure_step(torch, lambda: step(
+        state, batch, fold_dropout_generators(43, LARGE_FOLDS, state.step,
+                                              "cuda")),
+        LARGE_FOLDS * TRAIN_ACCUM * 16,
+        "uniter-large 15d fold-parallel step F %d" % LARGE_FOLDS, base)
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    log(on_card("uniter-large 15d: %.2f GiB a fold at the peak of the F %d "
+                "step: the largest F that fits in %.1f GiB, reckoned "
+                "linearly, is %d" % (
+                    m["peak_gib"] / LARGE_FOLDS, LARGE_FOLDS, total,
+                    int(total // (m["peak_gib"] / LARGE_FOLDS)))))
+    del stack, opt, state, step, batch
+
+
+def _repeated_grads(torch, model, loss_of, repaired: bool) -> list:
+    """The leaves of ``model`` whose gradients differ between two identical
+    gradient passes (``loss_of(model)``, dropout from one seed each time):
+    with the lookups indexing their table, or (``repaired`` false) through
+    ``F.embedding`` as before the repair."""
+    from meme_challenge_tpu_torch.models import text_models, uniter
+
+    lookup = uniter.embedding_lookup
+    if not repaired:
+        def embedding(weight, ids):
+            return torch.nn.functional.embedding(ids.long(), weight)
+
+        uniter.embedding_lookup = text_models.embedding_lookup = embedding
+    try:
+        grads = []
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            loss_of(model).backward()
+            grads.append({n: p.grad.clone() for n, p in
+                          model.named_parameters() if p.grad is not None})
+    finally:
+        uniter.embedding_lookup = text_models.embedding_lookup = lookup
+    model.zero_grad(set_to_none=True)
+    return [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+
+
+def repeat_gate_phase(torch, synth: dict) -> None:
+    """Phase 15e, the gate of the embedding repair: two identical gradient
+    passes (dropout on, from one seed) give the same bits, each with a
+    lookup of more than 3 072 ids: UNITER-base MemeUniter with
+    --fuse_accum's 32 rows (32 × 100 image type ids), fp32 pair-blocked;
+    UniterForPretraining's MRFR over 32 × 100 mask ids; bert at 64 × 60
+    tokens. Beside each, the leaves that differ when the lookups go through
+    ``F.embedding`` as before the repair (not gated)."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.models.text_models import init_text_model
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.train.losses import bce_logits_loss
+    from meme_challenge_tpu_torch.train.pretrain_driver import _task_loss
+    from meme_challenge_tpu_torch.train.pretrain_init import (
+        init_pretrain_model,
+    )
+    from meme_challenge_tpu_torch.train.steps import (
+        MODEL_INPUT_KEYS,
+        TRAIN_KEYS,
+        to_device,
+    )
+
+    keys = MODEL_INPUT_KEYS + TRAIN_KEYS
+
+    def classifier_loss(b):
+        def loss_of(model):
+            logits = model(b, deterministic=False,
+                           generator=dropout_generator(43, 0, "cuda"))
+            return bce_logits_loss(logits, b["labels"], b["sample_mask"],
+                                   1.8)[0]
+        return loss_of
+
+    cases = []
+    stacked = _fold_batches(torch, _train_dataset(synth), 1, TRAIN_ACCUM)
+    fused = {k: v.reshape((-1,) + tuple(v.shape[3:]))
+             for k, v in stacked.items()}
+    cases.append((
+        "UNITER-base MemeUniter --fuse_accum (fp32, pair-blocked)",
+        "%d image type ids" % fused["img_mask"].numel(),
+        fused["img_mask"].numel(),
+        lambda: init_meme_uniter(
+            UniterConfig(use_pallas_attention=True, pallas_blocked=True), 1,
+            "cuda", torch_generator(0, "cuda")), classifier_loss(fused)))
+    ds, tok = _pretrain_corpus(synth)
+    host = {k: v[0] for k, v in _task_batches(ds, tok, 2 * 16)["mrfr"]
+            .items()}
+    mrfr = to_device(host, "cuda", keys=host)
+    cases.append((
+        "UniterForPretraining MRFR (fp32, per-sample)",
+        "%d mask ids" % mrfr["img_masks"].numel(), mrfr["img_masks"].numel(),
+        lambda: init_pretrain_model(
+            UniterConfig(use_pallas_attention=True), 1601, "cuda",
+            torch_generator(0, "cuda")),
+        lambda model: _task_loss(model, mrfr, "mrfr",
+                                 dropout_generator(43, 0, "cuda"))))
+    text = _text_dataset(synth).batch(list(range(64)))
+    text["sample_mask"] = np.ones(64, np.int32)
+    text = to_device(text, "cuda", keys=keys)
+    cases.append((
+        "bert (fp32)", "%d word, position and token-type ids each"
+        % text["input_ids"].numel(), text["input_ids"].numel(),
+        lambda: init_text_model("bert", 1, "cuda",
+                                torch_generator(0, "cuda")),
+        classifier_loss(text)))
+    for tag, what, n_ids, build, loss_of in cases:
+        model = build()
+        differ = _repeated_grads(torch, model, loss_of, repaired=True)
+        before = _repeated_grads(torch, model, loss_of, repaired=False)
+        n_leaves = sum(1 for p in model.parameters() if p.requires_grad)
+        log(on_card(
+            "uniter-large 15e repeat %s, %s: two identical gradient passes "
+            "bit-equal %s (%d of %d leaves differ); through F.embedding as "
+            "before the repair %d differ%s" % (
+                tag, what, not differ, len(differ), n_leaves, len(before),
+                " (%s)" % before[:3] if before else "")))
+        if n_ids <= REPEAT_IDS:
+            fail("15e %s: %d ids, not above %d" % (tag, n_ids, REPEAT_IDS))
+        if differ:
+            fail("15e %s: two identical gradient passes differ in %s"
+                 % (tag, differ[:4]))
+        del model
+        torch.cuda.empty_cache()
 
 
 def main(argv) -> None:
@@ -4148,10 +4601,27 @@ def main(argv) -> None:
             % (name, time.time() - t0, time.time() - t_start))
         return out
 
+    def uniter_large(work, synth, passlog):
+        from meme_challenge_tpu_torch.ops import attention as A
+
+        timed("uniter-large card vs CPU", large_parity_phase, torch, synth,
+              A)
+        large = timed("uniter-large kernels", large_kernel_phase, torch, A)
+        large_launches = timed("uniter-large CLIs", large_cli_phase, torch,
+                               work, synth, passlog, A)
+        timed("uniter-large steps", large_step_phase, torch, synth)
+        timed("uniter-large repeat gate", repeat_gate_phase, torch, synth)
+        return large, large_launches
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    if "--uniter-large-only" in argv:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
+            uniter_large(work, make_dataset(work), PassLog())
+        return
     kernels = timed("kernels", kernel_phase, torch)
     if "--kernels-only" in argv:
         return
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     passlog = PassLog()
     with tempfile.TemporaryDirectory(
             dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
@@ -4201,6 +4671,7 @@ def main(argv) -> None:
         timed("detector training time", det_train_time_phase, torch,
               det_cfg, det_state, det_images)
         del det_state
+        large, large_launches = uniter_large(work, synth, passlog)
     timed("ensemble", ensemble_scale_phase, torch)
     # the recipe's kernel and dtype also ran the crossval and fold-parallel
     # phases: their launches count with the train phase's
@@ -4230,6 +4701,12 @@ def main(argv) -> None:
         log("launches %s[%s]: + extraction hand-off forward %d = %d"
             % (key[0], key[1], n, launches[key] + n))
         launches[key] += n
+    # phase 15c's UNITER-large CLI runs count too; 15a and 15b compare with
+    # the plain versions, 15d and 15e measure and gate
+    for key, n in large_launches.items():
+        log("launches %s[%s]: + UNITER-large CLI phase %d = %d"
+            % (key[0], key[1], n, launches[key] + n))
+        launches[key] += n
 
     # "route" is the kind of kernel (hand-written CUDA C++); "body" is the
     # CUDA body the route rule picked at the main path's shape, the one the
@@ -4245,7 +4722,9 @@ def main(argv) -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_ms_dropout": r["library_ms_dropout"],
-            "library_max_abs_err": r["library_max_abs_err"]})
+            "library_max_abs_err": r["library_max_abs_err"],
+            # phase 15b: the same kernel at UNITER-large's shapes
+            "uniter_large": large[(name, dtype)]})
     # the card again, near the end: long logs are often read from the tail
     log("card: " + card)
     log(json.dumps({"kernels": entries}))

@@ -51,6 +51,7 @@ from meme_challenge_tpu_torch.models.uniter import (
     _layer_norm,
     bernoulli_dropout,
     compute_dtype,
+    embedding_lookup,
     erf_gelu,
     init_weights,
 )
@@ -217,8 +218,10 @@ class TextBackbone(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         e = self.embeddings
-        x = (e.word_embeddings(input_ids) + e.position_embeddings(position_ids)
-             + e.token_type_embeddings(token_type_ids.long()))
+        x = (embedding_lookup(e.word_embeddings.weight, input_ids)
+             + embedding_lookup(e.position_embeddings.weight, position_ids)
+             + embedding_lookup(e.token_type_embeddings.weight,
+                                token_type_ids))
         x = _layer_norm(x, e.LayerNorm.weight, e.LayerNorm.bias,
                         cfg.layer_norm_eps, compute_dtype(self.encoder_config))
         x = bernoulli_dropout(x, cfg.hidden_dropout_prob, gen)

@@ -226,6 +226,22 @@ def _layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight + bias).to(out_dtype)
 
 
+def embedding_lookup(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of the table ``weight`` by a lookup whose backward
+    repeats bit for bit, and not ``F.embedding``: on a card, its backward
+    of more than 3 072 ids accumulates with atomics, in an order that
+    changes from run to run. On a card the lookup is an index
+    (``weight[ids]``), whose backward sorts the ids and sums each row in a
+    fixed order; on the CPU, where the index's backward adds with atomics
+    across threads, it is ``index_select``, whose backward adds the rows
+    one id after another. The forward is the same."""
+    ids = ids.long()
+    if weight.device.type == "cuda":
+        return weight[ids]
+    return weight.index_select(0, ids.reshape(-1)).reshape(
+        ids.shape + weight.shape[1:])
+
+
 class LayerNorm(nn.Module):
     """``weight``/``bias`` parameters applied by the fp32 :func:`_layer_norm`."""
 
@@ -266,14 +282,15 @@ class TextEmbeddings(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (self.word_embeddings(input_ids.long())
-             + self.position_embeddings(position_ids.long())
-             + self.token_type_embeddings(token_type_ids.long()))
+        x = (embedding_lookup(self.word_embeddings.weight, input_ids)
+             + embedding_lookup(self.position_embeddings.weight, position_ids)
+             + embedding_lookup(self.token_type_embeddings.weight,
+                                token_type_ids))
         x = self.LayerNorm(x, compute_dtype(self.config))
         return bernoulli_dropout(x, self.config.hidden_dropout_prob, generator)
 
     def type_embed(self, type_ids: torch.Tensor) -> torch.Tensor:
-        return self.token_type_embeddings(type_ids.long())
+        return embedding_lookup(self.token_type_embeddings.weight, type_ids)
 
 
 class ImageEmbeddings(nn.Module):
@@ -304,7 +321,7 @@ class ImageEmbeddings(nn.Module):
             # zeroes it in place each forward (model/model.py:261).
             w = self.mask_embedding.weight
             w = torch.cat([torch.zeros_like(w[:1]), w[1:]])
-            img_feat = img_feat + F.embedding(img_masks.long(), w)
+            img_feat = img_feat + embedding_lookup(w, img_masks)
         im = self.img_layer_norm(self.img_linear(img_feat.float()),
                                  torch.float32)
         pos = self.pos_layer_norm(self.pos_linear(img_pos_feat.float()),

@@ -5,14 +5,19 @@ Counterpart of ``ScalarWriter`` in ``meme_challenge_tpu/train/observability.py``
 Stats/time_per_train_iter, Stats/learning_rate, Stats/time_validation — the
 same scalar names). Two sinks: ``scalars.jsonl`` always, and TensorBoard
 where ``torch.utils.tensorboard`` imports (the reference's sink).
+``profile_trace`` is the counterpart of JAX's ``profile_trace``: a
+``torch.profiler`` trace of a block, left under a log directory.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
-from typing import Iterable, Tuple
+from typing import Iterable, Optional, Tuple
+
+import torch
 
 logger = logging.getLogger("meme_challenge_tpu_torch.observability")
 
@@ -54,3 +59,28 @@ class ScalarWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """torch.profiler trace around a block, written under ``log_dir`` as a
+    Chrome trace (``trace_<pid>_<time>.json``); with CUDA activity when a
+    card is there. A no-op, creating no directory, when ``log_dir`` is
+    falsy."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, "trace_%d_%d.json" % (os.getpid(), time.time_ns())))

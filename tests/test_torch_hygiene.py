@@ -1,5 +1,6 @@
-"""PyTorch port: imports nothing of JAX or of the JAX package, and its entry
-points run on CUDA unless asked for the CPU (raising here, without a card)."""
+"""PyTorch port: imports nothing of JAX or of the JAX package (nor do its
+examples, ``examples/torch_*.py``), and its entry points run on CUDA unless
+asked for the CPU (raising here, without a card)."""
 import ast
 import json
 import os
@@ -114,6 +115,21 @@ def test_no_forbidden_import_statement(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     assert not [n for n in names if _forbidden(n)], path
+
+
+EXAMPLES = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
+                  if f.startswith("torch_") and f.endswith(".py"))
+
+
+@pytest.mark.parametrize("script", EXAMPLES)
+def test_example_imports_no_jax(script):
+    """The port's examples (``examples/torch_*.py``) hold no import
+    statement of JAX or of the JAX package."""
+    test_no_forbidden_import_statement(os.path.join("examples", script))
+
+
+def test_port_examples_exist():
+    assert EXAMPLES == ["torch_pretrain_quickstart.py", "torch_quickstart.py"]
 
 
 def test_cli_defaults_to_cuda_and_raises_without_card():

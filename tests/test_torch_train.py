@@ -2,7 +2,8 @@
 train/optim.py against the JAX functions and the optax chain over several
 steps; the train step in both accumulation modes against the JAX step with
 a padded final micro-batch (dropout off); chunked steps against single
-steps (dropout on); full-state resume; scalar logs and the training meta."""
+steps (dropout on); full-state resume; scalar logs, the profiler trace
+and the training meta."""
 import json
 import os
 
@@ -36,7 +37,10 @@ from meme_challenge_tpu_torch.train.checkpoint import (
     save_train_state,
     save_training_meta,
 )
-from meme_challenge_tpu_torch.train.observability import ScalarWriter
+from meme_challenge_tpu_torch.train.observability import (
+    ScalarWriter,
+    profile_trace,
+)
 from meme_challenge_tpu_torch.train.optim import (
     Optimizer,
     head_lr_scales,
@@ -301,6 +305,28 @@ def test_train_state_resume_roundtrip(tmp_path):
         for k, v in state.opt_state[slot].items():
             assert torch.equal(v, restored.opt_state[slot][k])
             assert restored.opt_state[slot][k].dtype == torch.bfloat16
+
+
+def test_profile_trace_noop_and_real(tmp_path):
+    """As JAX's profile_trace (tests/test_observability.py): a falsy log
+    directory is a no-op that creates nothing; a real one is left holding
+    the profiler's trace of the block."""
+    with profile_trace(None):
+        pass
+    with profile_trace(""):
+        pass
+    assert os.listdir(tmp_path) == []
+
+    trace_dir = str(tmp_path / "trace")
+    with profile_trace(trace_dir):
+        (torch.ones(8, 8) @ torch.ones(8, 8)).sum().item()
+    found = []
+    for root, _dirs, files in os.walk(trace_dir):
+        found += [os.path.join(root, f) for f in files]
+    assert found, "profiler trace should leave artifacts under the log dir"
+    with open(found[0]) as f:
+        assert any("aten::mm" in e.get("name", "")
+                   for e in json.load(f)["traceEvents"])
 
 
 def test_scalar_writer_and_training_meta(tmp_path):
