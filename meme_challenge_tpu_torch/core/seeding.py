@@ -16,6 +16,8 @@ import random
 import numpy as np
 import torch
 
+from meme_challenge_tpu_torch.train.observability import span
+
 
 def set_seed(seed: int) -> None:
     """Seed python + numpy global RNGs (reference utils/utils.py:100-107)."""
@@ -37,9 +39,11 @@ def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     """The ``torch.Generator`` on ``device`` that optimizer step ``step`` of
     a run seeded ``seed`` draws its dropout from, seeded with 63 bits of
     numpy's SeedSequence over (seed, step)."""
-    ss = np.random.SeedSequence([int(seed) & 0xFFFFFFFFFFFFFFFF, int(step)])
-    return torch_generator(int(ss.generate_state(1, np.uint64)[0]) >> 1,
-                           device)
+    with span("meme.rng"):
+        ss = np.random.SeedSequence([int(seed) & 0xFFFFFFFFFFFFFFFF,
+                                     int(step)])
+        return torch_generator(int(ss.generate_state(1, np.uint64)[0]) >> 1,
+                               device)
 
 
 def fold_dropout_generators(seed: int, folds, step: int, device) -> list:

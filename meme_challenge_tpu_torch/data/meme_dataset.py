@@ -37,6 +37,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from meme_challenge_tpu_torch.core.constants import IMG_DIM, MAX_BB, MAX_TXT_LEN, POS_DIM
+from meme_challenge_tpu_torch.train.observability import span
 
 logger = logging.getLogger("meme_challenge_tpu_torch.data")
 
@@ -289,24 +290,28 @@ class BatchLoader:
         return ex
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = self._order()
+        with span("meme.loader.order"):
+            order = self._order()
         bs = self.batch_size
         for start in range(0, order.shape[0], bs):
-            chunk = order[start:start + bs]
-            valid = chunk.shape[0]
-            if valid < bs:  # pad final batch by repeating its first sample
-                chunk = np.concatenate(
-                    [chunk, np.full(bs - valid, chunk[0], dtype=np.int64)])
-            mask = np.zeros(bs, dtype=np.int32)
-            mask[:valid] = 1
-            if self.index_batches:
-                yield {"indices": chunk.astype(np.int32),
-                       "sample_mask": mask,
-                       "ids": self.dataset.ids[chunk],
-                       "labels": self.dataset.labels[chunk]}
-                continue
-            batch = self.dataset.batch(chunk)
-            batch["sample_mask"] = mask
+            # the range closes before the yield: the consumer's work is
+            # not the loader's
+            with span("meme.loader.batch"):
+                chunk = order[start:start + bs]
+                valid = chunk.shape[0]
+                if valid < bs:  # pad final batch by repeating its first sample
+                    chunk = np.concatenate(
+                        [chunk, np.full(bs - valid, chunk[0], dtype=np.int64)])
+                mask = np.zeros(bs, dtype=np.int32)
+                mask[:valid] = 1
+                if self.index_batches:
+                    batch = {"indices": chunk.astype(np.int32),
+                             "sample_mask": mask,
+                             "ids": self.dataset.ids[chunk],
+                             "labels": self.dataset.labels[chunk]}
+                else:
+                    batch = self.dataset.batch(chunk)
+                    batch["sample_mask"] = mask
             yield batch
 
 

@@ -6,7 +6,8 @@ Stats/time_per_train_iter, Stats/learning_rate, Stats/time_validation — the
 same scalar names). Two sinks: ``scalars.jsonl`` always, and TensorBoard
 where ``torch.utils.tensorboard`` imports (the reference's sink).
 ``profile_trace`` is the counterpart of JAX's ``profile_trace``: a
-``torch.profiler`` trace of a block, left under a log directory.
+``torch.profiler`` trace of a block, left under a log directory. ``span``
+names a range of the port's host work (``meme.*``) in such a trace.
 """
 from __future__ import annotations
 
@@ -20,6 +21,40 @@ from typing import Iterable, Optional, Tuple
 import torch
 
 logger = logging.getLogger("meme_challenge_tpu_torch.observability")
+
+try:
+    _RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+except AttributeError:  # a torch without it: ranges are not recorded
+    _RecordFunctionFast = None
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A named range of host work, recorded while a ``torch.profiler`` is
+    active (``profile_trace``, a benchmark's profiled slice) and nothing
+    otherwise (≈ 0.5 µs a range): ``with span("meme.step"): ...``.
+
+    The range is a FUNCTION-scope host event, on the profiler's clock and
+    in its Chrome trace, nested under whatever range is open. It is not a
+    ``record_function`` user annotation, since the profiler mirrors those
+    onto the device's timeline as CUDA events, which a reader of the trace
+    would take for kernels (launch counts, busy time). Where the installed
+    torch lacks the fast record function, a range is a no-op."""
+    if _RecordFunctionFast is None:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 class ScalarWriter:

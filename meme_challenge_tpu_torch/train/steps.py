@@ -28,6 +28,11 @@ program:
   the JAX ``_train_step_body`` under ``vmap`` over folds, as the JAX
   fold-parallel trainer runs it. :func:`fold_gather` is its
   device-resident gather through each fold's local→global row table.
+
+Each phase runs inside a named host range (``observability.span``):
+``meme.step`` around a train step, holding ``meme.step.forward``,
+``meme.step.backward`` and ``meme.step.optimizer``; ``meme.eval.forward``,
+``meme.eval.fetch``, ``meme.loader.stack`` and ``meme.upload``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from meme_challenge_tpu_torch.core.seeding import dropout_generator
+from meme_challenge_tpu_torch.train.observability import span
 
 # batch keys the model reads; in eval everything else (ids, labels,
 # sample_mask) stays on the host
@@ -52,8 +58,10 @@ def to_device(arrays: Dict[str, np.ndarray], device,
               keys=MODEL_INPUT_KEYS) -> Dict[str, torch.Tensor]:
     """Numpy arrays of ``keys`` (those present) → tensors on ``device``,
     dtypes as stored."""
-    return {k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
-            for k in keys if k in arrays and arrays[k] is not None}
+    with span("meme.upload"):
+        return {k: torch.from_numpy(np.ascontiguousarray(arrays[k]))
+                .to(device)
+                for k in keys if k in arrays and arrays[k] is not None}
 
 
 @dataclass
@@ -92,40 +100,52 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator,
                    data: Optional[Dict[str, torch.Tensor]] = None):
+        with span("meme.step"):
+            return _train_step(state, batch, generator, data)
+
+    def _train_step(state, batch, generator, data):
         for p in params.values():
             p.grad = None
         if fuse_accum and accum_steps > 1:
-            flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
-                    for k, v in batch.items()}
-            logits, flat = forward(flat, generator, data)
-            logits = logits.reshape((accum_steps, -1) + tuple(logits.shape[1:]))
-            labels = flat["labels"].reshape(accum_steps, -1)
-            masks = flat["sample_mask"].reshape(accum_steps, -1)
-            outs = [loss_fn(logits[a], labels[a], masks[a])
-                    for a in range(accum_steps)]
-            losses = torch.stack([o[0] for o in outs])
-            losses.mean().backward()
+            with span("meme.step.forward"):
+                flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                        for k, v in batch.items()}
+                logits, flat = forward(flat, generator, data)
+                logits = logits.reshape((accum_steps, -1)
+                                        + tuple(logits.shape[1:]))
+                labels = flat["labels"].reshape(accum_steps, -1)
+                masks = flat["sample_mask"].reshape(accum_steps, -1)
+                outs = [loss_fn(logits[a], labels[a], masks[a])
+                        for a in range(accum_steps)]
+                losses = torch.stack([o[0] for o in outs])
+                total = losses.mean()
+            with span("meme.step.backward"):
+                total.backward()
             probs = torch.stack([o[1] for o in outs]).detach()
             losses = losses.detach()
         else:
             losses, probs = [], []
             for a in range(accum_steps):
-                micro = {k: v[a] for k, v in batch.items()}
-                logits, micro = forward(micro, generator, data)
-                loss, pr = loss_fn(logits, micro["labels"],
-                                   micro["sample_mask"])
-                loss.backward()  # sums into .grad in micro order
+                with span("meme.step.forward"):
+                    micro = {k: v[a] for k, v in batch.items()}
+                    logits, micro = forward(micro, generator, data)
+                    loss, pr = loss_fn(logits, micro["labels"],
+                                       micro["sample_mask"])
+                with span("meme.step.backward"):
+                    loss.backward()  # sums into .grad in micro order
                 losses.append(loss.detach())
                 probs.append(pr.detach())
             losses, probs = torch.stack(losses), torch.stack(probs)
-        # a parameter the batch did not reach has a zero gradient, as in JAX
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params.values()]
-        if accum_steps > 1 and not fuse_accum:
-            grads = torch._foreach_div(grads, float(accum_steps))
-        optimizer.step(params, dict(zip(params, grads)), state.opt_state)
-        for p in params.values():
-            p.grad = None
+        with span("meme.step.optimizer"):
+            # a parameter the batch did not reach has a zero gradient, as
+            # in JAX
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params.values()]
+            if accum_steps > 1 and not fuse_accum:
+                grads = torch._foreach_div(grads, float(accum_steps))
+            optimizer.step(params, dict(zip(params, grads)), state.opt_state)
+            for p in params.values():
+                p.grad = None
         state.step += 1
         return state, {"loss": losses, "probs": probs}
 
@@ -201,39 +221,50 @@ def make_fold_train_step(model, loss_fn: Callable, optimizer,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generators, data=None):
+        with span("meme.step"):
+            return _train_step(state, batch, generators, data)
+
+    def _train_step(state, batch, generators, data):
         for p in params.values():
             p.grad = None
         if fuse_accum and accum_steps > 1:
-            flat = {k: v.reshape((folds, -1) + tuple(v.shape[3:]))
-                    for k, v in batch.items()}
-            logits, flat = forward(flat, generators, data)
-            logits = logits.reshape((folds, accum_steps, -1)
-                                    + tuple(logits.shape[2:]))
-            losses, probs = loss_of(
-                logits, flat["labels"].reshape(folds, accum_steps, -1),
-                flat["sample_mask"].reshape(folds, accum_steps, -1))
-            losses.mean(dim=1).sum().backward()
+            with span("meme.step.forward"):
+                flat = {k: v.reshape((folds, -1) + tuple(v.shape[3:]))
+                        for k, v in batch.items()}
+                logits, flat = forward(flat, generators, data)
+                logits = logits.reshape((folds, accum_steps, -1)
+                                        + tuple(logits.shape[2:]))
+                losses, probs = loss_of(
+                    logits, flat["labels"].reshape(folds, accum_steps, -1),
+                    flat["sample_mask"].reshape(folds, accum_steps, -1))
+                total = losses.mean(dim=1).sum()
+            with span("meme.step.backward"):
+                total.backward()
             losses, probs = losses.detach(), probs.detach()
         else:
             losses, probs = [], []
             for a in range(accum_steps):
-                micro = {k: v[:, a] for k, v in batch.items()}
-                logits, micro = forward(micro, generators, data)
-                loss, pr = loss_of(logits, micro["labels"],
-                                   micro["sample_mask"])
-                loss.sum().backward()  # sums into .grad in micro order
+                with span("meme.step.forward"):
+                    micro = {k: v[:, a] for k, v in batch.items()}
+                    logits, micro = forward(micro, generators, data)
+                    loss, pr = loss_of(logits, micro["labels"],
+                                       micro["sample_mask"])
+                    total = loss.sum()
+                with span("meme.step.backward"):
+                    total.backward()  # sums into .grad in micro order
                 losses.append(loss.detach())
                 probs.append(pr.detach())
             losses, probs = torch.stack(losses, 1), torch.stack(probs, 1)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params.values()]
-        if data_group is not None:
-            *grads, losses = _sum_over(data_group, grads + [losses])
-        if accum_steps > 1 and not fuse_accum:
-            grads = torch._foreach_div(grads, float(accum_steps))
-        optimizer.step(params, dict(zip(params, grads)), state.opt_state)
-        for p in params.values():
-            p.grad = None
+        with span("meme.step.optimizer"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params.values()]
+            if data_group is not None:
+                *grads, losses = _sum_over(data_group, grads + [losses])
+            if accum_steps > 1 and not fuse_accum:
+                grads = torch._foreach_div(grads, float(accum_steps))
+            optimizer.step(params, dict(zip(params, grads)), state.opt_state)
+            for p in params.values():
+                p.grad = None
         state.step += 1
         return state, {"loss": losses, "probs": probs}
 
@@ -264,8 +295,9 @@ def make_train_multi_step(train_step: Callable, seed: int, device):
 def stack_for_accum(batches: list) -> Dict[str, np.ndarray]:
     """Stack ``accum`` host micro-batches into one [accum, ...] numpy batch
     (uploaded whole by :func:`to_device`)."""
-    return {key: np.stack([np.asarray(b[key]) for b in batches], axis=0)
-            for key in batches[0]}
+    with span("meme.loader.stack"):
+        return {key: np.stack([np.asarray(b[key]) for b in batches], axis=0)
+                for key in batches[0]}
 
 
 def stack_chunk(chunk: list) -> Dict[str, np.ndarray]:
@@ -312,7 +344,7 @@ def make_eval_step(model_apply_eval: Callable, probs_fn: Callable,
     (device-resident pipeline)."""
 
     def eval_step(batch, data=None):
-        with torch.inference_mode():
+        with span("meme.eval.forward"), torch.inference_mode():
             if gather_data:
                 batch = gather_micro(data, batch)
             return probs_fn(model_apply_eval(batch))
@@ -332,7 +364,8 @@ def softmax_probs(logits: torch.Tensor) -> torch.Tensor:
 
 def fetch_all(pending: list) -> list:
     """Drain a pass's in-flight results at one host sync point."""
-    return [p.cpu().numpy() for p in pending]
+    with span("meme.eval.fetch"):
+        return [p.cpu().numpy() for p in pending]
 
 
 # in-flight depth for eval passes over HOST-BATCH loaders (each pending
@@ -358,7 +391,8 @@ class EvalPipeline:
         self._pending.append(out)
         if (self._window is not None
                 and len(self._pending) > self._window):
-            self._done.append(self._pending.pop(0).cpu().numpy())
+            with span("meme.eval.fetch"):
+                self._done.append(self._pending.pop(0).cpu().numpy())
 
     def results(self) -> list:
         return self._done + fetch_all(self._pending)

@@ -44,6 +44,7 @@ from meme_challenge_tpu_torch.core.seeding import dropout_generator
 from meme_challenge_tpu_torch.data.meme_dataset import BatchLoader
 from meme_challenge_tpu_torch.train.checkpoint import ModelSaver
 from meme_challenge_tpu_torch.train.losses import make_loss_fn
+from meme_challenge_tpu_torch.train.observability import span
 from meme_challenge_tpu_torch.train.optim import Optimizer
 from meme_challenge_tpu_torch.train.schedules import make_schedule
 from meme_challenge_tpu_torch.train.steps import (
@@ -245,11 +246,13 @@ class Trainer:
                     run("single", x)
 
             # one host sync for the epoch
-            loss_flat = torch.cat(losses).cpu().numpy()
             n_cls = (epoch_probs[0].shape[-1]
                      if c.loss_func == "ce" else None)
-            probs = torch.cat([p.reshape(-1, n_cls) if n_cls else p.reshape(-1)
-                               for p in epoch_probs]).cpu().numpy()
+            with span("meme.train.fetch"):
+                loss_flat = torch.cat(losses).cpu().numpy()
+                probs = torch.cat([p.reshape(-1, n_cls) if n_cls
+                                   else p.reshape(-1)
+                                   for p in epoch_probs]).cpu().numpy()
             seconds = time.perf_counter() - epoch_start
             labels = np.concatenate(epoch_labels)
             masks = np.concatenate([m.reshape(-1) for m in epoch_masks])

@@ -1,0 +1,7 @@
+"""Kernel launch calls an optimizer step that start inside the program's
+``meme.step.forward`` ranges, in the profiled slice."""
+from portbench.phases import launches_in
+
+
+def read(trace):
+    return launches_in(trace, "meme.step.forward")
