@@ -2,7 +2,8 @@
 """Drive the PyTorch port (meme_challenge_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only        # the build and phase 3
+    python3 chip_smoke.py --kernels-only        # the build and phases 3, 3b
+    python3 chip_smoke.py --adam-only           # the build and phase 3b
     python3 chip_smoke.py --uniter-large-only   # the build and phase 15
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --det-determinism
 
@@ -36,6 +37,22 @@ Phases, each of which makes the script exit non-zero if it fails:
    forward and backward against the plain version with the same shard, with
    the zero positions of the plain version and of one launch on the whole
    batch.
+3b. The fused Adam update (``ops/csrc/fused_adam.cu``) at UNITER-base's 212
+   and UNITER-large's 404 leaves, the recipe's optimizer (Adam, bf16
+   moments, weight decay 1e-3, clip at 5.0), random fp32 leaves: three
+   steps through ``Optimizer.step`` (the kernel, one launch a step) and
+   through ``Optimizer.chain_step`` (the ``_foreach_*`` chain) from one
+   start, the clip engaged, standing aside, engaged; parameters and moments
+   equal bit for bit (odd and unaligned leaves: the card tests of
+   tests/test_torch_fused_adam.py). Times by CUDA events: the kernel alone
+   (with the arguments ``Optimizer.fused_update`` gives the step), the
+   fused step (the clip's norm and the kernel), the chain's step, beside
+   the bound (20 bytes a parameter at 3.35 TB/s), and the host ms of each
+   step. Every later CLI phase that trains (train, crossval, fold-parallel,
+   pretrain, handoff, text/Oscar, UNITER-large) holds the update's
+   launches to its optimizer steps: ceil(leaves / 512) a step of Adam or
+   AdamW over fp32 parameters, none a fold-parallel step (the chain). Those
+   launches and 3b's times make the update's line in the kernels' record.
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
@@ -254,7 +271,15 @@ SOURCE = {
         "meme_challenge_tpu_torch/ops/csrc/fused_attention_bwd.cu",
     "fused_attention_blocked_bwd":
         "meme_challenge_tpu_torch/ops/csrc/fused_attention_bwd.cu",
+    "fused_adam": "meme_challenge_tpu_torch/ops/csrc/fused_adam.cu",
 }
+# why the fused Adam update's record has no library time
+ADAM_NO_LIBRARY = (
+    "torch._fused_adam_ cannot compute this update: it keeps its moments "
+    "in the parameters' dtype (the recipe: bf16 over fp32), takes no clip "
+    "factors, one weight decay and one learning rate a call (no decay mask, "
+    "no update scales), and orders the bias corrections otherwise "
+    "(lr/c1 * m / (sqrt(v)/sqrt(c2) + eps))")
 
 
 def fail(msg: str) -> None:
@@ -840,6 +865,187 @@ class PassLog:
             records.clear()
 
 
+ADAM_RECIPE = dict(beta1=0.9, beta2=0.999, weight_decay=1e-3,
+                   max_grad_norm=5.0, mu_dtype="bfloat16",
+                   nu_dtype="bfloat16")
+# the leaf count of every Optimizer.step call, whichever route it took
+# (watch_optimizer_steps), and the fused update's launches that each CLI
+# phase checked against them (check_adam_launches), by phase
+OPT_STEPS = []
+ADAM_MAIN_PATH = {}
+
+
+def watch_optimizer_steps() -> None:
+    """Record in OPT_STEPS the number of leaves of every ``Optimizer.step``
+    call: the count the fused update's launches are held to, taken before
+    the optimizer chooses its route."""
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+
+    step = Optimizer.step
+    if getattr(step, "watched", False):
+        return
+
+    def watched(self, params, grads, state):
+        OPT_STEPS.append(len(params))
+        return step(self, params, grads, state)
+
+    watched.watched = True
+    Optimizer.step = watched
+
+
+def adam_mark() -> tuple:
+    """Where the fused update's launch count and OPT_STEPS stand now."""
+    from meme_challenge_tpu_torch.ops import fused_adam
+
+    return fused_adam.ADAM_LAUNCHES, len(OPT_STEPS)
+
+
+def check_adam_launches(tag: str, mark: tuple, steps=None, leaves=None,
+                        fused: bool = True) -> int:
+    """The optimizer steps since ``mark`` (``adam_mark``): at least one,
+    ``steps`` of them and each over ``leaves`` leaves where given, and the
+    fused update's launches: ceil(leaves / max_leaves) a step where
+    ``fused`` (Adam or AdamW of one model over fp32 parameters), none
+    otherwise (the ``_foreach_*`` chain). Counts them in ADAM_MAIN_PATH;
+    returns them."""
+    from meme_challenge_tpu_torch.ops import fused_adam
+
+    made = fused_adam.ADAM_LAUNCHES - mark[0]
+    calls = OPT_STEPS[mark[1]:]
+    want = (sum(_ceil(n, fused_adam.max_leaves()) for n in calls)
+            if fused else 0)
+    log("%s: %d optimizer steps (expected %s) over %s leaves (expected %s); "
+        "fused Adam launches %d (expected %d)"
+        % (tag, len(calls), "any" if steps is None else steps,
+           sorted(set(calls)), "any" if leaves is None else leaves, made,
+           want))
+    if not calls or made != want or (
+            steps is not None and len(calls) != steps) or (
+            leaves is not None and set(calls) != {leaves}):
+        fail("%s: %d optimizer steps over %s leaves, %d fused Adam launches; "
+             "expected %s steps over %s leaves, %d launches"
+             % (tag, len(calls), sorted(set(calls)), made, steps, leaves,
+                want))
+    if fused:
+        ADAM_MAIN_PATH[tag] = made
+    return made
+
+
+def uniter_leaves(cfg) -> int:
+    """The parameter leaves of MemeUniter(cfg): the leaves its fine-tune's
+    optimizer updates."""
+    import torch
+
+    from meme_challenge_tpu_torch.models.uniter import MemeUniter
+
+    with torch.device("meta"):
+        return len(list(MemeUniter(cfg).parameters()))
+
+
+def _adam_bits_equal(torch, tag, fused, chain) -> None:
+    """Parameters and moments of two runs, bit for bit; names the first
+    leaf that differs, with its count of differing elements."""
+    (fp, fs), (cp, cs) = fused, chain
+    for what, a, b in (("p", fp, cp), ("mu", fs["mu"], cs["mu"]),
+                       ("nu", fs["nu"], cs["nu"])):
+        for n in a:
+            x, y = a[n], b[n]
+            bits = torch.int32 if x.dtype == torch.float32 else torch.int16
+            if x.dtype != y.dtype or not torch.equal(x.view(bits),
+                                                     y.view(bits)):
+                diff = int((x.view(bits) != y.view(bits)).sum())
+                fail("fused Adam %s: %s of %s differs from the chain in %d "
+                     "of %d elements" % (tag, what, n, diff, x.numel()))
+
+
+def _adam_run(torch, opt, start, grads) -> tuple:
+    """``opt.step`` and ``opt.chain_step`` from copies of ``start`` over
+    ``grads`` (a list of steps): both runs' (params, state)."""
+    from meme_challenge_tpu_torch.ops import fused_adam
+
+    fused = {n: v.clone() for n, v in start.items()}
+    chain = {n: v.clone() for n, v in start.items()}
+    fs, cs = opt.init(fused), opt.init(chain)
+    mu = dict(fs["mu"])
+    before = fused_adam.ADAM_LAUNCHES
+    for g in grads:
+        opt.step(fused, g, fs)
+        opt.chain_step(chain, g, cs)
+    torch.cuda.synchronize()
+    made = fused_adam.ADAM_LAUNCHES - before
+    if made != len(grads):
+        fail("fused Adam: %d launches for %d steps" % (made, len(grads)))
+    if any(fs["mu"][n] is not mu[n] for n in mu):
+        fail("fused Adam: the moments did not keep their tensors")
+    return (fused, fs), (chain, cs)
+
+
+def adam_phase(torch) -> dict:
+    """Phase 3b (see the module's notes); returns each model's times."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
+    from meme_challenge_tpu_torch.models.uniter import MemeUniter
+    from meme_challenge_tpu_torch.ops import fused_adam
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    out = {}
+    for tag, cfg in (("uniter-base", UniterConfig()),
+                     ("uniter-large", large_config())):
+        with torch.device("meta"):
+            shapes = {n: tuple(p.shape) for n, p in
+                      MemeUniter(cfg).named_parameters()}
+        n_params = sum(math.prod(s) for s in shapes.values())
+
+        def leaves(scale):
+            return {n: torch.randn(s, generator=gen, device="cuda") * scale
+                    for n, s in shapes.items()}
+
+        opt = Optimizer("adam", 3e-5, lambda count: 1.0, **ADAM_RECIPE)
+        start = leaves(0.02)
+        # global norms ≈ 1e-3·√n ≫ 5 (engaged), ≈ 1e-4·√n (base 1.0, large
+        # 1.8: aside), engaged
+        grads = [leaves(scale) for scale in (1e-3, 1e-4, 1e-3)]
+        norms = [float(torch.linalg.vector_norm(torch.stack(
+            [x.norm() for x in g.values()]))) for g in grads]
+        if not norms[0] > 5.0 > norms[1]:
+            fail("fused Adam %s: gradient norms %s do not straddle the "
+                 "clip" % (tag, norms))
+        fused, chain = _adam_run(torch, opt, start, grads)
+        _adam_bits_equal(torch, tag, fused, chain)
+        del chain, start
+        grads = grads[:1]
+        (params, state), g = fused, grads[0]
+        # the kernel alone, with the arguments the fused step passes it
+        args, kwargs = opt.fused_update(params, g, state)
+        kernel_ms, kernel_host = device_ms(
+            lambda: fused_adam.adam_update(*args, **kwargs), iters=10, reps=3)
+        step_ms, step_host = device_ms(lambda: opt.step(params, g, state),
+                                       iters=5, reps=3)
+        chain_p = {n: v.clone() for n, v in params.items()}
+        chain_state = opt.init(chain_p)
+        chain_ms, chain_host = device_ms(
+            lambda: opt.chain_step(chain_p, g, chain_state), iters=2, reps=3)
+        bound_ms = 20.0 * n_params / PEAK_BYTES * 1e3
+        out[tag] = {"leaves": len(shapes), "params": n_params,
+                    "bound_ms": bound_ms, "kernel_ms": kernel_ms,
+                    "share": bound_ms / kernel_ms, "step_ms": step_ms,
+                    "chain_ms": chain_ms, "kernel_host_ms": kernel_host,
+                    "step_host_ms": step_host, "chain_host_ms": chain_host}
+        log("fused Adam 3b %s: %d leaves, %d parameters bit for bit the "
+            "chain over 3 steps (clip norms %s); kernel %.4f ms (bound %.4f "
+            "ms, %.1f %% of it), fused step %.4f ms, chain %.4f ms on the "
+            "card; host ms a call: kernel %.3f, fused step %.3f, chain %.3f"
+            % (tag, len(shapes), n_params,
+               ", ".join("%.3g" % x for x in norms), kernel_ms, bound_ms,
+               100 * bound_ms / kernel_ms, step_ms, chain_ms, kernel_host,
+               step_host, chain_host))
+        del fused, grads, g, chain_p, chain_state, params, state
+        del args, kwargs
+        torch.cuda.empty_cache()
+    log("FUSED_ADAM " + json.dumps(out))
+    return out
+
+
 def forward_breakdown(torch, model, batch, dtype: str) -> None:
     """Where one batch-16 forward's time goes (informational, after the
     counted runs): device ms (queue-filled events) against the host's ms to
@@ -1123,6 +1329,7 @@ def finetune_cli_run(torch, work: str, synth: dict, passlog, A, cfg,
         argv.append("--fuse_accum")
     passlog.clear()
     reset_launches(A)
+    mark = adam_mark()
     t0 = time.time()
     train_uniter.main(argv)
     torch.cuda.synchronize()
@@ -1134,6 +1341,7 @@ def finetune_cli_run(torch, work: str, synth: dict, passlog, A, cfg,
     # padded to TRAIN_ACCUM; --fuse_accum runs one forward per group
     groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
                  for n, _ in passlog.epochs)
+    check_adam_launches(tag, mark, groups, uniter_leaves(cfg))
     train_fwd = groups * (1 if fuse else TRAIN_ACCUM)
     eval_batches = sum(_ceil(n, batch_size) for n, _ in passlog.passes)
     want = {name: layers * (train_fwd + eval_batches),
@@ -1401,6 +1609,7 @@ def crossval_phase(torch, work: str, synth: dict, passlog) -> dict:
     passlog.clear()
     reset_launches(A)
     ea_runs = E.DEVICE_EA_RUNS["count"]
+    mark = adam_mark()
     t0 = time.time()
     results = train_uniter.main(argv)
     torch.cuda.synchronize()
@@ -1417,6 +1626,8 @@ def crossval_phase(torch, work: str, synth: dict, passlog) -> dict:
              "%s" % (n_folds, n_splits, len(passlog.epochs), passlog.folds))
     groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
                  for n, _ in passlog.epochs)
+    check_adam_launches("crossval", mark, groups,
+                        uniter_leaves(UniterConfig()))
     train_fwd = groups * TRAIN_ACCUM
     eval_batches = sum(_ceil(n, batch_size) for n, _ in passlog.passes)
     want = {name: layers * (train_fwd + eval_batches),
@@ -1894,12 +2105,15 @@ def fold_cli_phase(torch, work: str, synth: dict, passlog,
     passlog.clear()
     ea_runs = E.DEVICE_EA_RUNS["count"]
     reset_launches(A)
+    mark = adam_mark()
     t0 = time.time()
     results = train_uniter.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = dict(A.LAUNCHES)
     by_route = check_route_counts(A, "fold-parallel", dtype, (name, bwd))
+    # the fold-stacked optimizer keeps the _foreach_* chain
+    check_adam_launches("fold-parallel", mark, fused=False)
     n_folds = len(results["val_metrics"])
     micro = sum(steps * accum for steps, accum in passlog.fold_steps)
     evals = sum(passlog.fold_passes)
@@ -2377,11 +2591,13 @@ def pretrain_cli_phase(torch, work: str, synth: dict, passlog, A) -> tuple:
                                    pallas_blocked=blocked).to_dict(), f)
         passlog.clear()
         reset_launches(A)
+        mark = adam_mark()
         t0 = time.time()
         losses = pretrain_uniter.main(_pretrain_argv(synth, run_dir,
                                                      cfg_path) + flags)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        check_adam_launches("pretrain " + tag, mark, steps)
         bwd = name + "_bwd"
         by_route = check_route_counts(A, "pretrain " + tag, dtype,
                                       (name, bwd))
@@ -2487,6 +2703,7 @@ def pretrain_handoff_phase(torch, work: str, synth: dict, passlog, A,
     """Phase 10d: the port's fine-tune CLI (--num_folds 0, 1 epoch, fp32,
     per-sample kernel) from the 10b fp32 pretraining dump: it must load it
     in "pretrain" mode and end with a finite AUROC. Returns its launches."""
+    from meme_challenge_tpu_torch.core.config import UniterConfig
     from meme_challenge_tpu_torch.train import train_uniter
 
     run_dir = os.path.join(work, "pretrain_handoff")
@@ -2504,12 +2721,17 @@ def pretrain_handoff_phase(torch, work: str, synth: dict, passlog, A,
                                                     "pretrain.ckpt")]
     passlog.clear()
     reset_launches(A)
+    mark = adam_mark()
     t0 = time.time()
     train_uniter.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     check_route_counts(A, "pretrain handoff", "float32",
                        ("fused_attention", "fused_attention_bwd"))
+    check_adam_launches("pretrain handoff", mark, sum(
+        _ceil(_ceil(n, 16), TRAIN_ACCUM) for n, _ in passlog.epochs),
+        uniter_leaves(UniterConfig.from_json_file(
+            os.path.join(fp32_dir, "uniter.json"))))
     metrics = check_outputs(run_dir, "finetune.ckpt", synth)
     auc = metrics["dev"]["aucroc"]
     log(on_card("pretrain handoff: fine-tune from the pretraining dump, CLI "
@@ -2842,11 +3064,13 @@ def text_cli_phase(torch, work: str, synth: dict, passlog, A) -> dict:
         os.makedirs(run_dir)
         passlog.clear()
         reset_launches(A)
+        mark = adam_mark()
         t0 = time.time()
         cli.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = dict(A.LAUNCHES)
+        check_adam_launches(tag, mark)
         log(on_card("%s: CLI %.1f s; train %s memes/s by epoch; fused-"
                     "attention launches %s" % (
                         tag, wall, ["%.1f" % (n / s) for n, s in
@@ -4584,8 +4808,8 @@ def main(argv) -> None:
         {k: round(v, 1) for k, v in secs.items()})))
     for name in cuda_build.LIBRARIES:
         for line in cuda_build.build_log(name).splitlines():
-            entry = re.search(r"entry function '\S*?(attn_\w+?kernel)(\w*)'",
-                              line)
+            entry = re.search(r"entry function '\S*?((?:attn|adam)_\w+?"
+                              r"kernel)(\w*)'", line)
             if entry:  # the kernel and its mangled template arguments
                 log("ptxas %s: %s<%s>" % (name, entry.group(1),
                                           entry.group(2)[:12]))
@@ -4619,9 +4843,14 @@ def main(argv) -> None:
                 dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
             uniter_large(work, make_dataset(work), PassLog())
         return
+    if "--adam-only" in argv:
+        timed("fused adam", adam_phase, torch)
+        return
     kernels = timed("kernels", kernel_phase, torch)
+    adam = timed("fused adam", adam_phase, torch)
     if "--kernels-only" in argv:
         return
+    watch_optimizer_steps()
     passlog = PassLog()
     with tempfile.TemporaryDirectory(
             dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
@@ -4725,6 +4954,22 @@ def main(argv) -> None:
             "library_max_abs_err": r["library_max_abs_err"],
             # phase 15b: the same kernel at UNITER-large's shapes
             "uniter_large": large[(name, dtype)]})
+    # the fused Adam update: launches from the CLI phases that held them to
+    # their optimizer steps (check_adam_launches), times from phase 3b at
+    # UNITER-base's leaves (UNITER-large's under "uniter_large"); "plain" is
+    # the _foreach_* chain the kernel is bit-equal to
+    for tag, n in ADAM_MAIN_PATH.items():
+        log("launches adam_update_kernel[float32]: %s %d" % (tag, n))
+    entries.append({
+        "name": "adam_update_kernel[float32]", "route": "cuda",
+        "body": "bf16 moments", "source": SOURCE["fused_adam"],
+        "replaces": None, "launches": sum(ADAM_MAIN_PATH.values()),
+        "max_abs_err": 0.0, "ms": adam["uniter-base"]["kernel_ms"],
+        "plain_ms": adam["uniter-base"]["chain_ms"],
+        "bound_ms": adam["uniter-base"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "library_none": ADAM_NO_LIBRARY,
+        "uniter_large": {k: adam["uniter-large"][k] for k in (
+            "kernel_ms", "chain_ms", "bound_ms", "leaves", "params")}})
     # the card again, near the end: long logs are often read from the tail
     log("card: " + card)
     log(json.dumps({"kernels": entries}))

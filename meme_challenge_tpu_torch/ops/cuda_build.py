@@ -30,6 +30,7 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 LIBRARIES: Dict[str, tuple] = {
     "fused_attention": ("fused_attention.cu",),
     "fused_attention_bwd": ("fused_attention_bwd.cu",),
+    "fused_adam": ("fused_adam.cu",),
 }
 
 # -split-compile 0: optimise a source's kernels in parallel on every core (a

@@ -24,8 +24,19 @@ utils/optim_utils.py). The chain, in order:
   whatever the data), so bias corrections and the schedule are numpy
   float32 scalars and an update issues no host sync.
 
-Updates use the ``torch._foreach_*`` ops: one launch per operation over all
-parameters rather than one per parameter.
+Two routes, chosen by :meth:`Optimizer.fused` from the optimizer's own
+arguments and the parameters' device and dtype. They share the clip's
+factors, the bias corrections and the step size, and nothing of the update:
+
+- ``adam`` / ``adamw`` of one model (``folds=0``, no ``split``) over fp32
+  parameters with fp32 or bf16 moments: one hand-written update of every
+  leaf, in place (``ops/fused_adam.py``, ``ops/csrc/fused_adam.cu``; its plain
+  PyTorch version on the CPU). It is the chain below computed element by
+  element in the chain's order, bit for bit. Only the clip's norm stays a
+  handful of torch ops.
+- everything else (``adamax``, ``sgd``, ``folds=F``, a ``split``):
+  :meth:`Optimizer.chain_step`, the ``torch._foreach_*`` ops, one launch per
+  operation over all parameters rather than one per parameter.
 
 With ``folds=F`` every parameter carries a leading fold axis ``[F, ...]``
 (the fold-parallel trainer's stacked state) and the chain is the optax
@@ -44,6 +55,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from meme_challenge_tpu_torch.ops import fused_adam
 
 _F = np.float32
 
@@ -136,6 +149,7 @@ class Optimizer:
         self.mu_dtype, self.nu_dtype = _dtype(mu_dtype), _dtype(nu_dtype)
         self.folds = folds
         self.split = split
+        self._leaves = None  # (names, decay flags, update scales), per names
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         def zeros(dtype):
@@ -157,6 +171,16 @@ class Optimizer:
         """optax.clip_by_global_norm: g unchanged below ``max_grad_norm``,
         else ``g / norm · max_norm``; no host sync. With folds, one norm and
         one trigger a fold."""
+        div, mul = self._clip_factors(g, names)
+        if not self.folds:
+            return _mul(torch._foreach_div(g, div), mul)
+        div = [_fold_scalar(div, x) for x in g]
+        mul = [_fold_scalar(mul, x) for x in g]
+        return torch._foreach_mul(torch._foreach_div(g, div), mul)
+
+    def _clip_factors(self, g, names):
+        """The clip's ``(div, mul)`` on the device: ``(1, 1)`` below
+        ``max_grad_norm``, else ``(norm, max_norm)``; one of each a fold."""
         if not self.folds:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(g)))
@@ -178,13 +202,8 @@ class Optimizer:
                 norm = torch.sqrt(sq[len(cut):].sum(0) + part)
         trigger = norm < self.max_grad_norm
         one = torch.ones_like(norm)
-        div = torch.where(trigger, one, norm)
-        mul = torch.where(trigger, one, one * self.max_grad_norm)
-        if not self.folds:
-            return _mul(torch._foreach_div(g, div), mul)
-        div = [_fold_scalar(div, x) for x in g]
-        mul = [_fold_scalar(mul, x) for x in g]
-        return torch._foreach_mul(torch._foreach_div(g, div), mul)
+        return (torch.where(trigger, one, norm),
+                torch.where(trigger, one, one * self.max_grad_norm))
 
     def _decay(self, u, p, names):
         if not self.weight_decay:
@@ -198,10 +217,19 @@ class Optimizer:
             u[i] = d
         return u
 
+    def _corrections(self, count):
+        """Adam's bias corrections ``1 − b**count``, in float32."""
+        return (float(_F(1.0) - _F(self.beta1) ** _F(count)),
+                float(_F(1.0) - _F(self.beta2) ** _F(count)))
+
+    def _step_size(self, count):
+        """optax.scale_by_learning_rate: −lr·schedule at the count before
+        the increment, in float32."""
+        return float(-(_F(self.lr) * _F(self.schedule(count))))
+
     def _adam(self, g, state, names, count):
         b1, b2 = self.beta1, self.beta2
-        c1 = float(_F(1.0) - _F(b1) ** _F(count))
-        c2 = float(_F(1.0) - _F(b2) ** _F(count))
+        c1, c2 = self._corrections(count)
         mu = [state["mu"][n].float() for n in names]
         nu = [state["nu"][n].float() for n in names]
         mu = _add(_mul(mu, b1), _mul(g, 1.0 - b1))
@@ -231,11 +259,62 @@ class Optimizer:
         for n, v in zip(names, values):
             slot[n] = v.to(slot[n].dtype)
 
-    # ------------------------------------------------------------- the chain
+    # ------------------------------------------------------------ the routes
+
+    def fused(self, params: Dict[str, torch.Tensor]) -> bool:
+        """Whether :meth:`step` takes the fused update: Adam or AdamW of one
+        model (no folds, no split), fp32 or bf16 moments, every parameter
+        fp32 on the CPU or a card."""
+        return (self.name in ("adam", "adamw") and not self.folds
+                and self.split is None
+                and self.mu_dtype in (None, torch.bfloat16)
+                and self.nu_dtype in (None, torch.bfloat16)
+                and next(iter(params.values())).device.type in ("cpu", "cuda")
+                and all(p.dtype is torch.float32 for p in params.values()))
 
     def step(self, params: Dict[str, torch.Tensor],
              grads: Dict[str, torch.Tensor], state: dict) -> None:
-        """One update of ``params`` in place (optax.apply_updates: p + u)."""
+        """One update of ``params`` in place (optax.apply_updates: p + u),
+        by the fused update where :meth:`fused` allows it, else by
+        :meth:`chain_step`."""
+        if not self.fused(params):
+            self.chain_step(params, grads, state)
+            return
+        args, kwargs = self.fused_update(params, grads, state)
+        fused_adam.adam_update(*args, **kwargs)
+        state["count"] += 1
+
+    def fused_update(self, params: Dict[str, torch.Tensor],
+                     grads: Dict[str, torch.Tensor], state: dict) -> tuple:
+        """The ``(args, kwargs)`` of ``fused_adam.adam_update`` for the next
+        fused :meth:`step` from ``state``: the leaves, their decay flags and
+        update scales, the clip's factors (computed here, on the device),
+        the bias corrections and the step size. Leaves ``state`` as it
+        is."""
+        names = list(params)
+        if self._leaves is None or self._leaves[0] != names:
+            mask = no_decay_mask(names)
+            self._leaves = (
+                names, [bool(self.weight_decay) and mask[n] for n in names],
+                [1.0 if self.update_scales is None
+                 else float(self.update_scales[n]) for n in names])
+        _, decay, scales = self._leaves
+        u = [grads[n] for n in names]
+        clip = (None if self.max_grad_norm is None
+                else self._clip_factors(u, names))
+        count = state["count"]
+        c1, c2 = self._corrections(count + 1)
+        args = (list(params.values()), u, [state["mu"][n] for n in names],
+                [state["nu"][n] for n in names], decay, scales, clip)
+        kwargs = dict(b1=self.beta1, b2=self.beta2, eps=self.eps,
+                      weight_decay=self.weight_decay, c1=c1, c2=c2,
+                      step_size=self._step_size(count),
+                      adamw=self.name == "adamw")
+        return args, kwargs
+
+    def chain_step(self, params: Dict[str, torch.Tensor],
+                   grads: Dict[str, torch.Tensor], state: dict) -> None:
+        """One update by the ``_foreach_*`` chain, for every optimizer."""
         names = list(params)
         p = [params[n].detach() for n in names]
         u = [grads[n] for n in names]
@@ -257,11 +336,7 @@ class Optimizer:
                 u = t
         if self.update_scales is not None:
             u = [x * self.update_scales[n] for x, n in zip(u, names)]
-        # optax.scale_by_learning_rate: −lr·schedule at the count before
-        # the increment, in float32
-        step_size = float(-(_F(self.lr) * _F(self.schedule(count))))
-        u = _mul(u, step_size)
+        u = _mul(u, self._step_size(count))
         state["count"] = count + 1
         with torch.no_grad():
             torch._foreach_add_(p, u)
-

@@ -142,7 +142,8 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params.values()]
             if accum_steps > 1 and not fuse_accum:
-                grads = torch._foreach_div(grads, float(accum_steps))
+                # in place: the fresh .grad tensors are the step's own
+                torch._foreach_div_(grads, float(accum_steps))
             optimizer.step(params, dict(zip(params, grads)), state.opt_state)
             for p in params.values():
                 p.grad = None
