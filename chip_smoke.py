@@ -3206,7 +3206,9 @@ DET_LOWP_TOL = 2e-2  # bf16 / uint8 blobs against fp32 (tests/test_detector.py)
 # scores saturate and every anchor decodes to the whole image (one proposal
 # after NMS). These factors (the CPU tests' own) spread the scores and keep
 # the box deltas small; the class scores stay peaked, so the card and the
-# CPU take the same argmax into the attribute head.
+# CPU take the same argmax into the attribute head. The benchmark's
+# detector configuration scales its weights by the same factors
+# (portbench/configs/bua-caffe-r101.json: decision_scale).
 DET_SCALE = {"proposal_generator.rpn_head.objectness_logits.weight": 0.02,
              "proposal_generator.rpn_head.anchor_deltas.weight": 0.001,
              "roi_heads.box_predictor.bbox_pred.weight": 0.001,

@@ -34,6 +34,14 @@ the RPN sampling uniforms (one per anchor), the ROI sampling uniforms (one
 per proposal), the proposal jitter ``[P, 4]`` in ``[-jitter, jitter)``.
 :meth:`DetectorTrainStep.step_with_draws` takes those three tensors as
 given, so a step can be held to JAX's value for value on JAX's own draws.
+
+Named host ranges (``train/observability.span``, recorded only under a
+running ``torch.profiler``): ``meme.step`` around an update, holding
+``meme.step.forward`` (the five losses, with ``meme.det.rpn``: anchors,
+matching, sampling and the RPN losses; ``meme.det.roi``: the proposal set,
+ROIAlign, the ROI heads and their losses), ``meme.step.backward`` and
+``meme.step.optimizer``; ``meme.upload`` where :meth:`DetectorTrainStep.upload`
+copies a batch from the host.
 """
 from __future__ import annotations
 
@@ -50,8 +58,11 @@ from meme_challenge_tpu_torch.extract.detector import (
 )
 from meme_challenge_tpu_torch.extract.ops import roi_align
 from meme_challenge_tpu_torch.ops.iou import pairwise_iou
+from meme_challenge_tpu_torch.train.observability import span
 
 Tensor = torch.Tensor
+# the arrays of a batch the step reads
+BATCH_KEYS = ("images", "gt_boxes", "gt_classes", "gt_attrs", "gt_mask")
 
 
 def encode_boxes(anchors: Tensor, targets: Tensor,
@@ -262,6 +273,16 @@ class DetectorTrainStep:
 
     # ------------------------------------------------------------ inputs
 
+    def upload(self, batch) -> Dict[str, Tensor]:
+        """The arrays of ``batch`` the step reads (``BATCH_KEYS``; its
+        ``image_id`` is left out) on the step's device, under a
+        ``meme.upload`` range where one comes from the host."""
+        if all(isinstance(batch[k], Tensor) and batch[k].device == self.device
+               for k in BATCH_KEYS):
+            return {k: batch[k] for k in BATCH_KEYS}
+        with span("meme.upload"):
+            return {k: self._upload(batch[k]) for k in BATCH_KEYS}
+
     def _upload(self, value) -> Tensor:
         """A host array or tensor on the step's device; from the host
         through pinned memory without a host sync."""
@@ -299,42 +320,45 @@ class DetectorTrainStep:
         :meth:`draw`. With ``aux``, also the decisions the losses took
         (anchor labels, proposal labels, the heads' probabilities)."""
         cfg, A, P = self.cfg, self.num_anchors, self.num_proposals
-        images = self._upload(batch["images"]).permute(0, 3, 1, 2)
-        gt_boxes = self._upload(batch["gt_boxes"])
-        gt_classes = self._upload(batch["gt_classes"])
-        gt_attrs = self._upload(batch["gt_attrs"])
-        gt_mask = self._upload(batch["gt_mask"])
+        batch = self.upload(batch)
+        images = batch["images"].permute(0, 3, 1, 2)
+        gt_boxes, gt_classes = batch["gt_boxes"], batch["gt_classes"]
+        gt_attrs, gt_mask = batch["gt_attrs"], batch["gt_mask"]
         feat, logits, deltas = self.model.backbone_rpn(
             images.float().contiguous())
         fh, fw = feat.shape[2], feat.shape[3]
-        anchors = self.anchors(fh, fw)
-        # NHWC, the order of make_anchors (FeatureExtractor._backbone_rpn)
-        logits = logits.permute(0, 2, 3, 1)[0]
-        fg_logit = (logits[..., A:] - logits[..., :A]).reshape(-1)
-        flat_deltas = deltas.permute(0, 2, 3, 1)[0].reshape(-1, 4)
         if isinstance(draws, torch.Generator):
-            draws = self.draw(anchors.shape[0], draws)
+            draws = self.draw(fh * fw * A, draws)
         rpn_uniform, roi_uniform, noise = draws
-        losses = rpn_losses(anchors, fg_logit, flat_deltas, gt_boxes,
-                            gt_mask, rpn_uniform)
+        with span("meme.det.rpn"):
+            anchors = self.anchors(fh, fw)
+            # NHWC, the order of make_anchors (FeatureExtractor._backbone_rpn)
+            logits = logits.permute(0, 2, 3, 1)[0]
+            fg_logit = (logits[..., A:] - logits[..., :A]).reshape(-1)
+            flat_deltas = deltas.permute(0, 2, 3, 1)[0].reshape(-1, 4)
+            losses = rpn_losses(anchors, fg_logit, flat_deltas, gt_boxes,
+                                gt_mask, rpn_uniform)
 
-        # static proposal set: gt ⊕ jittered gt, cycled over the VALID gt
-        # rows only (valid-first stable order, index modulo n_valid), as
-        # the padding rows would make degenerate [0,0,0,0] proposals
-        order = torch.argsort((~gt_mask).to(torch.int32), stable=True)
-        n_valid = gt_mask.sum().clamp(min=1)
-        sel = order[torch.arange(P, device=self.device) % n_valid]
-        base = gt_boxes[sel]
-        wh = torch.stack([base[:, 2] - base[:, 0],
-                          base[:, 3] - base[:, 1]], dim=1)
-        proposals = base + noise * torch.cat([wh, wh], dim=1)
-        R = cfg.pooler_resolution
-        pooled = roi_align(feat[0], proposals, 1.0 / cfg.anchor_base, (R, R))
-        out = self.model.roi_forward(pooled)
-        losses.update(roi_losses(
-            proposals, _log_prob(out["cls_prob"]), out["bbox_deltas"],
-            _log_prob(out["attr_prob"]), gt_boxes, gt_classes, gt_attrs,
-            gt_mask, roi_uniform))
+        with span("meme.det.roi"):
+            # static proposal set: gt ⊕ jittered gt, cycled over the VALID
+            # gt rows only (valid-first stable order, index modulo
+            # n_valid), as the padding rows would make degenerate
+            # [0,0,0,0] proposals
+            order = torch.argsort((~gt_mask).to(torch.int32), stable=True)
+            n_valid = gt_mask.sum().clamp(min=1)
+            sel = order[torch.arange(P, device=self.device) % n_valid]
+            base = gt_boxes[sel]
+            wh = torch.stack([base[:, 2] - base[:, 0],
+                              base[:, 3] - base[:, 1]], dim=1)
+            proposals = base + noise * torch.cat([wh, wh], dim=1)
+            R = cfg.pooler_resolution
+            pooled = roi_align(feat[0], proposals, 1.0 / cfg.anchor_base,
+                               (R, R))
+            out = self.model.roi_forward(pooled)
+            losses.update(roi_losses(
+                proposals, _log_prob(out["cls_prob"]), out["bbox_deltas"],
+                _log_prob(out["attr_prob"]), gt_boxes, gt_classes, gt_attrs,
+                gt_mask, roi_uniform))
         if not aux:
             return losses
         return losses, {
@@ -362,20 +386,25 @@ class DetectorTrainStep:
 
     def gradients(self, batch, draws
                   ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-        """The losses of ``batch`` on ``draws`` (as :meth:`losses`) and the
-        gradient of their sum by every parameter, under
+        """The losses of ``batch`` on ``draws`` (as :meth:`losses`,
+        detached) and the gradient of their sum by every parameter, under
         :func:`deterministic_cudnn`: the same inputs give the same bits."""
         with deterministic_cudnn():
-            losses = self.losses(batch, draws)
-            names = list(self.params)
-            grads = torch.autograd.grad(sum(losses.values()),
-                                        [self.params[n] for n in names])
+            with span("meme.step.forward"):
+                losses = self.losses(batch, draws)
+            with span("meme.step.backward"):
+                names = list(self.params)
+                grads = torch.autograd.grad(sum(losses.values()),
+                                            [self.params[n] for n in names])
+                losses = {k: v.detach() for k, v in losses.items()}
         return losses, dict(zip(names, grads))
 
     def _update(self, batch, draws) -> Dict[str, Tensor]:
-        losses, grads = self.gradients(batch, draws)
-        self.optimizer.step(self.params, grads, self.opt_state)
-        return {k: v.detach() for k, v in losses.items()}
+        with span("meme.step"):
+            losses, grads = self.gradients(batch, draws)
+            with span("meme.step.optimizer"):
+                self.optimizer.step(self.params, grads, self.opt_state)
+        return losses
 
 
 def make_detector_train_step(model, cfg: DetectorConfig, optimizer,

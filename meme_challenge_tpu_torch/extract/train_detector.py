@@ -125,6 +125,27 @@ def save_weights(model: nn.Module, path: str) -> None:
     os.replace(tmp, path)
 
 
+def train_iteration(step, batch, seed: int, it: int, device,
+                    log_every: int):
+    """Iteration ``it`` (from 0) of the training loop on the loader's
+    ``batch``: the arrays the step reads uploaded to ``device``
+    (``image_id`` left out), then :func:`step_iteration`."""
+    return step_iteration(step, step.upload(batch), seed, it, device,
+                          log_every)
+
+
+def step_iteration(step, batch, seed: int, it: int, device,
+                   log_every: int):
+    """Iteration ``it`` on a ``batch`` already on ``device``: the
+    iteration's generator (the counterpart of ``fold_in(root, it)``), one
+    optimizer step of ``step`` and, every ``log_every``-th iteration, the
+    losses read back. Returns the losses, on the device, and their values,
+    or None where none were read."""
+    losses = step(batch, dropout_generator(seed, it, device))
+    values = loss_values(losses) if (it + 1) % log_every == 0 else None
+    return losses, values
+
+
 def train(args, cfg: DetectorConfig, records, val_records,
           image_reader=None):
     """``args.epochs`` epochs over ``records`` on ``args.device``; after each
@@ -151,12 +172,10 @@ def train(args, cfg: DetectorConfig, records, val_records,
     t0 = time.time()
     for epoch in range(1, args.epochs + 1):
         for batch in loader:
-            batch = {k: v for k, v in batch.items() if k != "image_id"}
-            # a generator a step, the counterpart of fold_in(root, it)
-            losses = step(batch, dropout_generator(args.seed, it, device))
+            _, values = train_iteration(step, batch, args.seed, it, device,
+                                        args.log_every)
             it += 1
-            if it % args.log_every == 0:
-                values = loss_values(losses)
+            if values is not None:
                 history["losses"].append((it, values))
                 logger.info("iter %d losses %s (%.1fs)", it,
                             {k: round(v, 4) for k, v in values.items()},

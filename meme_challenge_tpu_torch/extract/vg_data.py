@@ -42,6 +42,7 @@ from meme_challenge_tpu_torch.extract.detector import (
     DetectorConfig,
     get_image_blob,
 )
+from meme_challenge_tpu_torch.train.observability import span
 
 logger = logging.getLogger("meme_challenge_tpu_torch.extract.vg_data")
 
@@ -163,11 +164,17 @@ class VGDetectionLoader:
                 "gt_mask": gt_mask, "image_id": rec["image_id"]}
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.arange(len(self.records))
-        if self.is_train:
-            self.rng.shuffle(order)
+        """One epoch of batches; the order under a ``meme.loader.order``
+        range and each batch under ``meme.loader.batch``, closed before the
+        batch is yielded."""
+        with span("meme.loader.order"):
+            order = np.arange(len(self.records))
+            if self.is_train:
+                self.rng.shuffle(order)
         for i in order:
             rec = self.records[i]
             if self.is_train and len(rec["boxes"]) == 0:
                 continue  # filter_empty_instances (dataset_mapper.py:158)
-            yield self._one(rec)
+            with span("meme.loader.batch"):
+                batch = self._one(rec)
+            yield batch
