@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only        # the build and phases 3, 3b
     python3 chip_smoke.py --adam-only           # the build and phase 3b
+    python3 chip_smoke.py --graph-only          # the build and phase 3c
     python3 chip_smoke.py --uniter-large-only   # the build and phase 15
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --det-determinism
 
@@ -53,6 +54,16 @@ Phases, each of which makes the script exit non-zero if it fails:
    launches to its optimizer steps: ceil(leaves / 512) a step of Adam or
    AdamW over fp32 parameters, none a fold-parallel step (the chain). Those
    launches and 3b's times make the update's line in the kernels' record.
+3c. The train step as one CUDA graph (``train/steps.py: make_train_step``;
+   run once the synthetic dataset is made): 5 optimizer steps of
+   full-width UNITER-base (fp32, per-sample kernel, dropout 0.1, the
+   recipe's Adam with bf16 moments and clip, a step size that changes every
+   step) eager (``train_step.eager``) and replayed (the first call
+   captures), from the same weights, batches and generators, in both
+   accumulation modes: every loss, probability, parameter and moment equal
+   bit for bit; one capture and 4 replays, and a second batch shape
+   captures once more and replays. Prints ms a step (synchronised), host ms
+   to issue one, and the peaks of allocated and reserved memory of each.
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
@@ -876,12 +887,15 @@ ADAM_MAIN_PATH = {}
 
 
 def watch_optimizer_steps() -> None:
-    """Record in OPT_STEPS the number of leaves of every ``Optimizer.step``
-    call: the count the fused update's launches are held to, taken before
-    the optimizer chooses its route."""
+    """Record in OPT_STEPS the number of leaves of every optimizer step: of
+    every ``Optimizer.step`` call, taken before the optimizer chooses its
+    route, and of every replay of a captured train step (its update is the
+    graph's fused Adam launch): the count the fused update's launches are
+    held to."""
     from meme_challenge_tpu_torch.train.optim import Optimizer
+    from meme_challenge_tpu_torch.train.steps import _StepGraphs
 
-    step = Optimizer.step
+    step, replay = Optimizer.step, _StepGraphs._replay
     if getattr(step, "watched", False):
         return
 
@@ -889,8 +903,13 @@ def watch_optimizer_steps() -> None:
         OPT_STEPS.append(len(params))
         return step(self, params, grads, state)
 
+    def watched_replay(self, g, state, batch, generator):
+        OPT_STEPS.append(len(self.params))
+        return replay(self, g, state, batch, generator)
+
     watched.watched = True
     Optimizer.step = watched
+    _StepGraphs._replay = watched_replay
 
 
 def adam_mark() -> tuple:
@@ -1016,7 +1035,8 @@ def adam_phase(torch) -> dict:
         grads = grads[:1]
         (params, state), g = fused, grads[0]
         # the kernel alone, with the arguments the fused step passes it
-        args, kwargs = opt.fused_update(params, g, state)
+        args, kwargs = opt.fused_update(params, g, state,
+                                        opt.prepare(params, state))
         kernel_ms, kernel_host = device_ms(
             lambda: fused_adam.adam_update(*args, **kwargs), iters=10, reps=3)
         step_ms, step_host = device_ms(lambda: opt.step(params, g, state),
@@ -1043,6 +1063,156 @@ def adam_phase(torch) -> dict:
         del args, kwargs
         torch.cuda.empty_cache()
     log("FUSED_ADAM " + json.dumps(out))
+    return out
+
+
+def graph_gate_phase(torch, synth: dict) -> dict:
+    """Phase 3c (see the module's notes); returns each mode's numbers."""
+    from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.train import steps as S
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+
+    ds = _train_dataset(synth)
+    n_steps = 5
+    batches = _fold_batches(torch, ds, n_steps, TRAIN_ACCUM)
+    c = TrainConfig()
+
+    def run(fuse, graphed, steps=range(n_steps), rows=16, state=None):
+        """The steps of ``steps`` (rows of each micro-batch), from a fresh
+        model of seed 0 or ``state``: (state, step's outputs, wall ms and
+        host ms of each step)."""
+        if state is None:
+            model = init_meme_uniter(UniterConfig(use_pallas_attention=True),
+                                     1, "cuda", torch_generator(0, "cuda"))
+            opt = Optimizer("adam", 3e-5, lambda count: (count + 1) / 8,
+                            beta1=c.beta1, beta2=c.beta2,
+                            weight_decay=c.weight_decay,
+                            max_grad_norm=c.max_grad_norm,
+                            mu_dtype=c.adam_mu_dtype,
+                            nu_dtype=c.adam_nu_dtype)
+            state = S.create_train_state(model, opt)
+            run.step = S.make_train_step(
+                model, make_loss_fn("bce_logits", 1.8), opt,
+                accum_steps=TRAIN_ACCUM, fuse_accum=fuse)
+        step = run.step if graphed else run.step.eager
+        outs, wall, host = [], [], []
+        for i in steps:
+            batch = {k: v[i, :, :rows] for k, v in batches.items()}
+            gen = dropout_generator(43, state.step, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, out = step(state, batch, gen)
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+        return state, outs, wall, host
+
+    def snapshot(state):
+        return {"p": {n: p.detach().clone() for n, p in
+                      state.model.named_parameters()},
+                "mu": {n: v.clone() for n, v in state.opt_state["mu"].items()},
+                "nu": {n: v.clone() for n, v in state.opt_state["nu"].items()}}
+
+    def same(tag, a, b):
+        for what in a:
+            for n in a[what]:
+                x, y = a[what][n], b[what][n]
+                bits = torch.int32 if x.dtype == torch.float32 else torch.int16
+                if not torch.equal(x.view(bits), y.view(bits)):
+                    fail("graph 3c %s: %s of %s differs between eager and "
+                         "replayed steps in %d of %d elements" % (
+                             tag, what, n, int((x.view(bits) != y.view(bits))
+                                               .sum()), x.numel()))
+
+    def restore(state, snap):
+        params = dict(state.model.named_parameters())
+        with torch.no_grad():
+            for n, v in snap["p"].items():
+                params[n].copy_(v)
+        for slot in ("mu", "nu"):
+            for n, v in snap[slot].items():
+                state.opt_state[slot][n].copy_(v)
+
+    out = {}
+    for fuse in (False, True):
+        tag = "fused accum" if fuse else "scan accum"
+        res = {}
+        for graphed in (False, True):
+            run.step = state = None
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            base_reserved = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            marks = S.GRAPH_CAPTURES, S.GRAPH_REPLAYS
+            state, outs, wall, host = run(fuse, graphed)
+            torch.cuda.synchronize()
+            made = (S.GRAPH_CAPTURES - marks[0], S.GRAPH_REPLAYS - marks[1])
+            if made != ((1, n_steps - 1) if graphed else (0, 0)):
+                fail("graph 3c %s: %d captures and %d replays in %d %s "
+                     "steps" % (tag, made[0], made[1], n_steps,
+                                "graphed" if graphed else "eager"))
+            res[graphed] = {
+                "snap": snapshot(state),
+                "loss": torch.stack([o["loss"] for o in outs]),
+                "probs": torch.stack([o["probs"] for o in outs]),
+                "step_ms": statistics.median(wall[1:]),
+                "issue_ms": statistics.median(host[1:]),
+                "first_ms": wall[0],
+                "allocated_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2 ** 30,
+                "reserved_gib": (torch.cuda.max_memory_reserved()
+                                 - base_reserved) / 2 ** 30}
+        eager, graph = res[False], res[True]
+        for what in ("loss", "probs"):
+            if not torch.equal(eager[what], graph[what]):
+                fail("graph 3c %s: the %s of %d steps differ between eager "
+                     "and replayed steps" % (tag, what, n_steps))
+        same(tag, eager["snap"], graph["snap"])
+        # a second batch shape: one more capture, then a replay; then the
+        # eager body from the same state gives the same numbers
+        ref = snapshot(state)
+        marks = S.GRAPH_CAPTURES, S.GRAPH_REPLAYS
+        state, outs, _, _ = run(fuse, True, range(2), rows=8, state=state)
+        made = (S.GRAPH_CAPTURES - marks[0], S.GRAPH_REPLAYS - marks[1])
+        if made != (1, 1):
+            fail("graph 3c %s: a new batch shape made %d captures and %d "
+                 "replays in 2 steps" % (tag, *made))
+        after = snapshot(state)
+        restore(state, ref)
+        state.step -= 2
+        state.opt_state["count"] -= 2
+        state, eager_outs, _, _ = run(fuse, False, range(2), rows=8,
+                                      state=state)
+        same(tag + " new shape", after, snapshot(state))
+        for o1, o2 in zip(outs, eager_outs):
+            if not all(torch.equal(o1[k], o2[k]) for k in o1):
+                fail("graph 3c %s: a new shape's outputs differ" % tag)
+        keep = ("step_ms", "issue_ms", "first_ms", "allocated_gib",
+                "reserved_gib")
+        out[tag] = {"eager": {k: eager[k] for k in keep},
+                    "replayed": {k: graph[k] for k in keep}}
+        log("graph 3c %s: %d steps bit for bit eager vs replayed (losses, "
+            "probabilities, %d leaves, both moments); one capture, %d "
+            "replays, a second shape one capture; eager %.2f ms a step, host "
+            "issue %.2f ms; replayed %.2f ms a step (capture step %.1f ms), "
+            "host issue %.2f ms; peaks allocated %.3f / %.3f GiB, reserved "
+            "%.3f / %.3f GiB (eager / replayed, above the phase's start)" % (
+                tag, n_steps, len(ref["p"]), n_steps - 1, eager["step_ms"],
+                eager["issue_ms"], graph["step_ms"], graph["first_ms"],
+                graph["issue_ms"], eager["allocated_gib"],
+                graph["allocated_gib"], eager["reserved_gib"],
+                graph["reserved_gib"]))
+        del res, eager, graph, state, outs, eager_outs, ref, after
+        run.step = None
+        torch.cuda.empty_cache()
+    log("STEP_GRAPH " + json.dumps(out))
     return out
 
 
@@ -4848,6 +5018,12 @@ def main(argv) -> None:
     if "--adam-only" in argv:
         timed("fused adam", adam_phase, torch)
         return
+    if "--graph-only" in argv:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
+            timed("train step graph", graph_gate_phase, torch,
+                  make_dataset(work))
+        return
     kernels = timed("kernels", kernel_phase, torch)
     adam = timed("fused adam", adam_phase, torch)
     if "--kernels-only" in argv:
@@ -4857,6 +5033,7 @@ def main(argv) -> None:
     with tempfile.TemporaryDirectory(
             dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
         synth = make_dataset(work)
+        timed("train step graph", graph_gate_phase, torch, synth)
         timed("inference", inference_phase, torch, work, synth, passlog)
         launches = timed("train", train_phase, torch, work, synth, passlog)
         cv_launches, cv_epochs = timed("crossval", crossval_phase, torch,

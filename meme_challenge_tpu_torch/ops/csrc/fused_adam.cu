@@ -31,6 +31,13 @@
 // doubles, each rounded once to float as torch rounds a scalar for a float
 // tensor. The result equals the chain's bit for bit.
 //
+// The three scalars that change from step to step (c1, c2 and the signed
+// step size −lr·schedule) are read from a device buffer of three floats,
+// written before the launch in stream order, and not passed by value: a
+// CUDA graph that captured the launch replays it with each step's values.
+// Each block divides 1 by c1 and c2 itself (__fdiv_rn, the host's float
+// division of the same operands).
+//
 // Layout: one launch for up to kMaxLeaves leaves. The leaf table (pointers,
 // sizes, decay flags, update scales and the prefix of each leaf's tiles)
 // travels as a kernel parameter of ≈ 25 KB (CUDA 12.1's 32 764-byte limit),
@@ -71,7 +78,8 @@ struct Table {
 };
 
 struct Scalars {
-  float b1, omb1, b2, omb2, rc1, rc2, eps, wd, step;
+  float b1, omb1, b2, omb2, eps, wd;
+  const float* sched;                         // c1, c2, step on the device
   const float* clip_div;                      // null: no clip
   const float* clip_mul;
   int adamw;
@@ -138,7 +146,7 @@ struct Moment<__nv_bfloat16> {
 
 struct Leaf {
   bool clip, decay, adamw;
-  float div, mul, scale;
+  float div, mul, scale, rc1, rc2, step;
 };
 
 // One element: p, mu, nu updated in registers from g (see the notes above).
@@ -148,10 +156,10 @@ __device__ __forceinline__ void update(const Scalars& s, const Leaf& l,
   if (l.decay && !l.adamw) g = __fadd_rn(g, __fmul_rn(p, s.wd));
   m = __fadd_rn(__fmul_rn(m, s.b1), __fmul_rn(g, s.omb1));
   v = __fadd_rn(__fmul_rn(v, s.b2), __fmul_rn(__fmul_rn(g, g), s.omb2));
-  float u = __fdiv_rn(__fmul_rn(m, s.rc1),
-                      __fadd_rn(__fsqrt_rn(__fmul_rn(v, s.rc2)), s.eps));
+  float u = __fdiv_rn(__fmul_rn(m, l.rc1),
+                      __fadd_rn(__fsqrt_rn(__fmul_rn(v, l.rc2)), s.eps));
   if (l.decay && l.adamw) u = __fadd_rn(u, __fmul_rn(p, s.wd));
-  u = __fmul_rn(__fmul_rn(u, l.scale), s.step);
+  u = __fmul_rn(__fmul_rn(u, l.scale), l.step);
   p = __fadd_rn(p, u);
 }
 
@@ -185,6 +193,9 @@ __global__ void __launch_bounds__(kThreads)
   l.decay = t.decay[i] != 0;
   l.adamw = s.adamw != 0;
   l.scale = t.scale[i];
+  l.rc1 = __fdiv_rn(1.f, s.sched[0]);
+  l.rc2 = __fdiv_rn(1.f, s.sched[1]);
+  l.step = s.sched[2];
 
   const bool aligned =
       (reinterpret_cast<uintptr_t>(t.p[i]) % 16 == 0) &&
@@ -248,8 +259,9 @@ int fused_adam_max_leaves(void) { return kMaxLeaves; }
 // (dtype 1), each as many elements as its p, all contiguous, given as arrays
 // of device addresses. numel, scale (the update scale, 1.0 for none) and
 // decay (0 or 1) per leaf, on the host. clip_div / clip_mul: device
-// addresses of the clip's two fp32 scalars, both null for no clip. The
-// scalars are those of the notes above. Returns cudaGetLastError() after the
+// addresses of the clip's two fp32 scalars, both null for no clip; sched:
+// the device address of c1, c2 and step (three floats). The other scalars
+// are those of the notes above. Returns cudaGetLastError() after the
 // launch (0 on success), cudaErrorInvalidValue for n outside
 // [1, kMaxLeaves], a dtype code other than 0 and 1, or more tiles than a
 // grid holds.
@@ -258,11 +270,10 @@ int fused_adam(int mu_dtype, int nu_dtype, int adamw, int n,
                const unsigned long long* mu, const unsigned long long* nu,
                const long long* numel, const float* scale,
                const unsigned char* decay, const void* clip_div,
-               const void* clip_mul, float b1, float omb1, float b2,
-               float omb2, float rc1, float rc2, float eps, float wd,
-               float step, void* stream) {
+               const void* clip_mul, const void* sched, float b1, float omb1,
+               float b2, float omb2, float eps, float wd, void* stream) {
   if (n < 1 || n > kMaxLeaves || mu_dtype < 0 || mu_dtype > 1 ||
-      nu_dtype < 0 || nu_dtype > 1)
+      nu_dtype < 0 || nu_dtype > 1 || sched == nullptr)
     return (int)cudaErrorInvalidValue;
   Table t;
   std::memset(&t, 0, sizeof(t));
@@ -282,7 +293,8 @@ int fused_adam(int mu_dtype, int nu_dtype, int adamw, int n,
   t.tile0[n] = (int)tiles;
   t.n = n;
   if (tiles == 0) return 0;
-  const Scalars s{b1, omb1, b2, omb2, rc1, rc2, eps, wd, step,
+  const Scalars s{b1, omb1, b2, omb2, eps, wd,
+                  static_cast<const float*>(sched),
                   static_cast<const float*>(clip_div),
                   static_cast<const float*>(clip_mul), adamw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

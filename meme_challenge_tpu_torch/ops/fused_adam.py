@@ -18,8 +18,11 @@ by ``float32(1 / c)``, the plain version divides.
   nothing falls back.
 - ``p``, ``mu`` and ``nu`` are written in place: the moments keep their
   tensors and their storage dtype (float32 or bfloat16). ``g`` is read only.
-- Nothing synchronises the host: the clip's factors are device scalars the
-  kernel reads, the leaf table travels as a kernel parameter.
+- Nothing synchronises the host: the clip's factors and the step's
+  scalars (``sched``: the bias corrections and the step size) are device
+  scalars the kernel reads, the leaf table travels as a kernel parameter.
+  A CUDA graph that captured a launch replays it with whatever ``sched``
+  holds then (``train/steps.py: make_train_step``).
 
 ``ADAM_LAUNCHES`` counts the launches (on the CPU, the calls of the plain
 version standing in for them): the count that says the route engaged.
@@ -44,7 +47,7 @@ def _lib():
     if not getattr(lib, "typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_adam.argtypes = [i, i, i, i, vp, vp, vp, vp, vp, vp, vp,
-                                   vp, vp, f, f, f, f, f, f, f, f, f, vp]
+                                   vp, vp, vp, f, f, f, f, f, f, vp]
         lib.fused_adam.restype = i
         lib.fused_adam_max_leaves.argtypes = []
         lib.fused_adam_max_leaves.restype = i
@@ -123,35 +126,40 @@ def _check(p, g, mu, nu, decay, scales) -> Tuple[torch.device, list]:
 def adam_update(p: Sequence[torch.Tensor], g: Sequence[torch.Tensor],
                 mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
                 decay: Sequence[bool], scales: Sequence[float],
-                clip: Optional[Tuple[torch.Tensor, torch.Tensor]], *,
-                b1: float, b2: float, eps: float, weight_decay: float,
-                c1: float, c2: float, step_size: float, adamw: bool) -> None:
+                clip: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                sched: torch.Tensor, *, b1: float, b2: float, eps: float,
+                weight_decay: float, adamw: bool) -> None:
     """Update ``p``, ``mu``, ``nu`` in place from ``g``.
 
     ``decay[i]``: leaf i takes the L2 decay ``weight_decay`` (after the
     moments with ``adamw``); ``scales[i]`` its update scale (1.0 for none);
     ``clip``: the global-norm clip's ``(div, mul)`` fp32 device scalars, or
-    None. ``c1``, ``c2``: the bias corrections; ``step_size``: the signed
-    ``−lr·schedule``. The scalars are Python floats, rounded once to fp32."""
+    None. ``sched``: the step's scalars, a 3-element float32 tensor on the
+    leaves' device: the bias corrections ``c1``, ``c2`` and the signed step
+    size ``−lr·schedule``. The other scalars are Python floats, rounded once
+    to fp32."""
     global ADAM_LAUNCHES
     device, numel = _check(p, g, mu, nu, decay, scales)
-    if clip is not None:
-        for t in clip:
+    for what, ts, n in (("the clip's factors", clip or (), 1),
+                        ("the step's scalars", (sched,), 3)):
+        for t in ts:
             if (t.device != device or t.dtype is not torch.float32
-                    or t.numel() != 1):
-                raise ValueError("fused Adam: the clip's factors must be "
-                                 "one-element float32 tensors on %s" % device)
-    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, c1=c1,
-                 c2=c2, step_size=step_size, adamw=adamw)
+                    or t.numel() != n or not t.is_contiguous()):
+                raise ValueError("fused Adam: %s must be %d-element float32 "
+                                 "tensors on %s" % (what, n, device))
+    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                 adamw=adamw)
     if device.type == "cpu":
-        fused_adam_plain(p, g, mu, nu, decay, scales, clip, **hyper)
+        c1, c2, step_size = sched.tolist()
+        fused_adam_plain(p, g, mu, nu, decay, scales, clip, c1=c1, c2=c2,
+                         step_size=step_size, **hyper)
         ADAM_LAUNCHES += 1
         return
     chunk = max_leaves()
     for a in range(0, len(p), chunk):
         z = slice(a, a + chunk)
         _launch(p[z], g[z], mu[z], nu[z], numel[z], decay[z], scales[z],
-                clip, device, **hyper)
+                clip, sched, device, **hyper)
         ADAM_LAUNCHES += 1
 
 
@@ -160,8 +168,8 @@ def _addresses(ts: List[torch.Tensor]) -> np.ndarray:
                        count=len(ts))
 
 
-def _launch(p, g, mu, nu, numel, decay, scales, clip, device, *, b1, b2,
-            eps, weight_decay, c1, c2, step_size, adamw) -> None:
+def _launch(p, g, mu, nu, numel, decay, scales, clip, sched, device, *, b1,
+            b2, eps, weight_decay, adamw) -> None:
     lib = _lib()
     table = (_addresses(p), _addresses(g), _addresses(mu), _addresses(nu),
              np.asarray(numel, dtype=np.int64),
@@ -173,9 +181,8 @@ def _launch(p, g, mu, nu, numel, decay, scales, clip, device, *, b1, b2,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.fused_adam(
             _DTYPE_CODE[mu[0].dtype], _DTYPE_CODE[nu[0].dtype], int(adamw),
-            len(p), *(a.ctypes.data for a in table), div, mul, b1, 1.0 - b1,
-            b2, 1.0 - b2, float(np.float32(1) / np.float32(c1)),
-            float(np.float32(1) / np.float32(c2)), eps, weight_decay,
-            step_size, stream)
+            len(p), *(a.ctypes.data for a in table), div, mul,
+            sched.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay,
+            stream)
     if err != 0:
         raise RuntimeError("fused_adam launch failed: CUDA error %d" % err)

@@ -22,7 +22,9 @@ utils/optim_utils.py). The chain, in order:
   sum; here that product is fp32 too, a difference of one bf16 rounding.
 - The step count lives on the host as an int (it advances once per update
   whatever the data), so bias corrections and the schedule are numpy
-  float32 scalars and an update issues no host sync.
+  float32 scalars and an update issues no host sync. The fused route reads
+  them from the device (:meth:`Optimizer.prepare`), so that a CUDA graph of
+  the update replays with each step's values.
 
 Two routes, chosen by :meth:`Optimizer.fused` from the optimizer's own
 arguments and the parameters' device and dtype. They share the clip's
@@ -280,17 +282,43 @@ class Optimizer:
         if not self.fused(params):
             self.chain_step(params, grads, state)
             return
-        args, kwargs = self.fused_update(params, grads, state)
-        fused_adam.adam_update(*args, **kwargs)
+        self.update(params, grads, state, self.prepare(params, state))
         state["count"] += 1
 
+    def prepare(self, params: Dict[str, torch.Tensor], state: dict,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step-dependent scalars of the next fused :meth:`step` from
+        ``state``'s count, as ``fused_adam.adam_update``'s ``sched``: the
+        bias corrections at ``count + 1`` and ``−lr·schedule(count)``, the
+        float32 values the chain uses, on the parameters' device. On a card
+        they are copied from pinned memory in stream order (the host does
+        not wait), into ``out`` where given: the buffer a captured update
+        reads."""
+        device = next(iter(params.values())).device
+        count = state["count"]
+        host = torch.tensor([*self._corrections(count + 1),
+                             self._step_size(count)], dtype=torch.float32)
+        if device.type == "cuda":
+            host = host.pin_memory()
+        if out is None:
+            return host.to(device, non_blocking=True)
+        return out.copy_(host, non_blocking=True)
+
+    def update(self, params: Dict[str, torch.Tensor],
+               grads: Dict[str, torch.Tensor], state: dict,
+               sched: torch.Tensor) -> None:
+        """The fused update's device work, ``sched`` from :meth:`prepare`:
+        the clip's factors and the kernel. Leaves the count as it is."""
+        args, kwargs = self.fused_update(params, grads, state, sched)
+        fused_adam.adam_update(*args, **kwargs)
+
     def fused_update(self, params: Dict[str, torch.Tensor],
-                     grads: Dict[str, torch.Tensor], state: dict) -> tuple:
+                     grads: Dict[str, torch.Tensor], state: dict,
+                     sched: torch.Tensor) -> tuple:
         """The ``(args, kwargs)`` of ``fused_adam.adam_update`` for the next
         fused :meth:`step` from ``state``: the leaves, their decay flags and
         update scales, the clip's factors (computed here, on the device),
-        the bias corrections and the step size. Leaves ``state`` as it
-        is."""
+        and ``sched`` (:meth:`prepare`'s). Leaves ``state`` as it is."""
         names = list(params)
         if self._leaves is None or self._leaves[0] != names:
             mask = no_decay_mask(names)
@@ -302,13 +330,10 @@ class Optimizer:
         u = [grads[n] for n in names]
         clip = (None if self.max_grad_norm is None
                 else self._clip_factors(u, names))
-        count = state["count"]
-        c1, c2 = self._corrections(count + 1)
         args = (list(params.values()), u, [state["mu"][n] for n in names],
-                [state["nu"][n] for n in names], decay, scales, clip)
+                [state["nu"][n] for n in names], decay, scales, clip, sched)
         kwargs = dict(b1=self.beta1, b2=self.beta2, eps=self.eps,
-                      weight_decay=self.weight_decay, c1=c1, c2=c2,
-                      step_size=self._step_size(count),
+                      weight_decay=self.weight_decay,
                       adamw=self.name == "adamw")
         return args, kwargs
 

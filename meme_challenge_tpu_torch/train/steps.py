@@ -2,7 +2,8 @@
 
 Counterpart of ``meme_challenge_tpu/train/steps.py``. PyTorch runs eagerly,
 so a "step" is a Python function over device tensors, not a compiled
-program:
+program; on a card the single-model train step is captured once as a CUDA
+graph and replayed, the closest thing to JAX's compiled step:
 
 - :func:`make_train_step`: one optimizer step over an ``[accum, B, ...]``
   batch. Per micro-batch a backward, the gradients summed in micro order
@@ -10,6 +11,11 @@ program:
   ``fuse_accum``, one forward and backward over the flattened ``[accum·B]``
   batch whose loss is the mean of the per-micro masked means. Losses and
   probabilities stay on the device: a step fetches nothing to the host.
+  Where :func:`step_captures` holds, each input signature
+  (:func:`step_signature`) is captured once and replayed
+  (:class:`_StepGraphs`; ``GRAPH_CAPTURES``, ``GRAPH_REPLAYS`` count them):
+  the host issues a few copies and one graph launch a step instead of
+  thousands of kernel launches.
 - :func:`make_train_multi_step` runs ``--steps_per_dispatch`` steps as a
   plain loop (``--dispatch_unroll`` has nothing to unroll): the numbers are
   those of single steps, because every step's dropout generator is made
@@ -31,8 +37,10 @@ program:
 
 Each phase runs inside a named host range (``observability.span``):
 ``meme.step`` around a train step, holding ``meme.step.forward``,
-``meme.step.backward`` and ``meme.step.optimizer``; ``meme.eval.forward``,
-``meme.eval.fetch``, ``meme.loader.stack`` and ``meme.upload``.
+``meme.step.backward`` and ``meme.step.optimizer`` (in an eager step, a
+captured step's warm-up and its capture) or ``meme.step.replay`` (a
+replay); ``meme.eval.forward``, ``meme.eval.fetch``, ``meme.loader.stack``
+and ``meme.upload``.
 """
 from __future__ import annotations
 
@@ -89,7 +97,14 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     ``loss_fn(logits, labels, sample_mask)`` → (loss, probs). Dropout draws
     from ``generator``; the parameters and ``state`` are updated in place.
     A zero-mask micro-batch (the padded end of an epoch) has loss 0 and adds
-    zero gradients."""
+    zero gradients.
+
+    Where :func:`step_captures` holds (a card, no process group, the fused
+    Adam / AdamW update, no recompute), the step is a CUDA graph: the first
+    call of each :func:`step_signature` runs eagerly on a side stream and
+    captures the step; later calls replay it (:class:`_StepGraphs`), with
+    the eager step's numbers bit for bit. ``train_step.eager`` is the step
+    without the graph."""
     params = dict(model.named_parameters())
 
     def forward(batch, generator, data):
@@ -97,13 +112,9 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
             batch = gather_micro(data, batch)
         return model(batch, deterministic=False, generator=generator), batch
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: torch.Generator,
-                   data: Optional[Dict[str, torch.Tensor]] = None):
-        with span("meme.step"):
-            return _train_step(state, batch, generator, data)
-
-    def _train_step(state, batch, generator, data):
+    def run(batch, generator, data, update):
+        """The step's device work, ``update(grads)`` the optimizer's:
+        (losses, probs)."""
         for p in params.values():
             p.grad = None
         if fuse_accum and accum_steps > 1:
@@ -144,13 +155,208 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
             if accum_steps > 1 and not fuse_accum:
                 # in place: the fresh .grad tensors are the step's own
                 torch._foreach_div_(grads, float(accum_steps))
-            optimizer.step(params, dict(zip(params, grads)), state.opt_state)
+            update(dict(zip(params, grads)))
             for p in params.values():
                 p.grad = None
+        return losses, probs
+
+    def eager(state: TrainState, batch: Dict[str, torch.Tensor],
+              generator: torch.Generator,
+              data: Optional[Dict[str, torch.Tensor]] = None):
+        losses, probs = run(batch, generator, data, lambda grads:
+                            optimizer.step(params, grads, state.opt_state))
         state.step += 1
         return state, {"loss": losses, "probs": probs}
 
+    graphs = _StepGraphs(run, eager, params, optimizer,
+                         (accum_steps, fuse_accum, gather_data))
+    remat = any(getattr(getattr(m, "config", None), "remat", False)
+                for m in model.modules())
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator,
+                   data: Optional[Dict[str, torch.Tensor]] = None):
+        with span("meme.step"):
+            if step_captures(next(iter(params.values())).device, optimizer,
+                             params, remat):
+                return graphs(state, batch, generator, data)
+            return eager(state, batch, generator, data)
+
+    train_step.eager = eager
     return train_step
+
+
+# CUDA graphs of make_train_step captured and replayed in this process
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+
+
+def step_captures(device: torch.device, optimizer, params,
+                  remat: bool) -> bool:
+    """Whether :func:`make_train_step`'s step on ``device`` is a CUDA graph:
+    a card, no process group (a step under one talks to other ranks), the
+    fused Adam / AdamW update (``Optimizer.fused``: the other routes pass
+    each step's scalars to ``_foreach_*`` ops from the host), and a model
+    none of whose modules recomputes its layers in the backward (``remat``:
+    the recompute sets its generator's state on the host, which a capture
+    does not record)."""
+    return (device.type == "cuda"
+            and not (dist.is_available() and dist.is_initialized())
+            and not remat and optimizer.fused(params))
+
+
+def step_signature(batch: Dict[str, torch.Tensor], accum_steps: int,
+                   fuse_accum: bool, gather_data: bool,
+                   data: Optional[Dict[str, torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None) -> tuple:
+    """What one captured step serves: the batch's keys, shapes and dtypes,
+    the accumulation and its mode, and, read in place by the graph, the
+    device-resident dataset's tensors by address; with or without a
+    generator."""
+    return (tuple((k, tuple(v.shape), v.dtype)
+                  for k, v in sorted(batch.items())),
+            accum_steps, fuse_accum, gather_data,
+            None if data is None else tuple(
+                (k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
+                for k, v in sorted(data.items())),
+            generator is None)
+
+
+def _launch_counts() -> tuple:
+    """The port's kernel launch counters (``fused_adam.ADAM_LAUNCHES``,
+    ``attention.LAUNCHES``, ``attention.ROUTE_LAUNCHES``) as they stand."""
+    from meme_challenge_tpu_torch.ops import attention, fused_adam
+
+    return (fused_adam.ADAM_LAUNCHES, dict(attention.LAUNCHES),
+            dict(attention.ROUTE_LAUNCHES))
+
+
+def _launches_since(before: tuple) -> tuple:
+    """The launches counted since :func:`_launch_counts` gave ``before``."""
+    after = _launch_counts()
+    return (after[0] - before[0],
+            {k: n - before[1][k] for k, n in after[1].items()},
+            {k: n - before[2][k] for k, n in after[2].items()})
+
+
+def _add_launches(counts: tuple, sign: int = 1) -> None:
+    """Add ``counts`` (from :func:`_launches_since`) to the counters,
+    ``sign`` times."""
+    from meme_challenge_tpu_torch.ops import attention, fused_adam
+
+    fused_adam.ADAM_LAUNCHES += sign * counts[0]
+    for table, delta in ((attention.LAUNCHES, counts[1]),
+                         (attention.ROUTE_LAUNCHES, counts[2])):
+        for k, n in delta.items():
+            table[k] += sign * n
+
+
+@dataclass
+class _Graph:
+    """One captured step: its inputs, generator, update scalars and outputs
+    (static tensors the replays read and write), and the kernel launches
+    the capture recorded, counted again at each replay."""
+    graph: object
+    inputs: Dict[str, torch.Tensor]
+    generator: Optional[torch.Generator]
+    sched: torch.Tensor
+    losses: torch.Tensor
+    probs: torch.Tensor
+    launches: tuple
+
+
+class _StepGraphs:
+    """The CUDA graphs of one :func:`make_train_step`, one a
+    :func:`step_signature`.
+
+    A new signature is captured once: its call copies the batch into static
+    buffers, runs the step eagerly on a side stream (every lazy set-up
+    happens outside the capture; this call's step), then captures the same
+    step into a private memory pool, dropout from a generator registered
+    with the graph and the update's scalars from a device buffer. A replay
+    copies the batch into the buffers, writes the update's scalars
+    (``Optimizer.prepare``), gives the graph's generator the state of
+    ``generator`` and replays, all in stream order, so the host does not
+    wait; the generator then takes the graph's advanced state, and the step
+    returns copies of the losses and probabilities. The graphs read and
+    write the parameters and the moments in place: when one of them moves
+    (a resumed state), the graphs are dropped and captured again."""
+
+    def __init__(self, run, eager, params, optimizer, mode):
+        self.run, self.eager = run, eager
+        self.params, self.optimizer, self.mode = params, optimizer, mode
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.bound: tuple = ()
+        self.stream = None
+
+    def __call__(self, state, batch, generator, data):
+        bound = tuple(t.data_ptr() for t in (
+            *self.params.values(), *state.opt_state["mu"].values(),
+            *state.opt_state["nu"].values()))
+        if bound != self.bound:
+            self.graphs.clear()
+            self.bound = bound
+        key = step_signature(batch, *self.mode, data, generator)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture(key, state, batch, generator, data)
+        return self._replay(g, state, batch, generator)
+
+    def _capture(self, key, state, batch, generator, data):
+        global GRAPH_CAPTURES
+        device = next(iter(self.params.values())).device
+        main = torch.cuda.current_stream(device)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        inputs = {k: torch.empty_like(v, memory_format=torch.contiguous_format)
+                  for k, v in batch.items()}
+        for k, v in batch.items():
+            inputs[k].copy_(v)
+        gen = None
+        if generator is not None:
+            gen = torch.Generator(device)
+            gen.set_state(generator.get_state())
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            state, out = self.eager(state, inputs, gen, data)
+        for t in out.values():
+            t.record_stream(main)
+        main.wait_stream(self.stream)
+        if generator is not None:
+            generator.set_state(gen.get_state())
+
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        sched = torch.empty(3, dtype=torch.float32, device=device)
+        before = _launch_counts()
+        with torch.cuda.graph(graph, stream=self.stream):
+            losses, probs = self.run(
+                inputs, gen, data, lambda grads: self.optimizer.update(
+                    self.params, grads, state.opt_state, sched))
+        launches = _launches_since(before)
+        _add_launches(launches, -1)  # a capture launches nothing
+        self.graphs[key] = _Graph(graph, inputs, gen, sched, losses, probs,
+                                  launches)
+        GRAPH_CAPTURES += 1
+        return state, out
+
+    def _replay(self, g: _Graph, state, batch, generator):
+        global GRAPH_REPLAYS
+        for k, v in batch.items():
+            g.inputs[k].copy_(v)
+        self.optimizer.prepare(self.params, state.opt_state, out=g.sched)
+        if generator is not None:
+            g.generator.set_state(generator.get_state())
+        with span("meme.step.replay"):
+            g.graph.replay()
+        if generator is not None:
+            generator.set_state(g.generator.get_state())
+        state.opt_state["count"] += 1
+        state.step += 1
+        _add_launches(g.launches)
+        GRAPH_REPLAYS += 1
+        return state, {"loss": g.losses.clone(), "probs": g.probs.clone()}
 
 
 def fold_gather(data, batch: Dict[str, torch.Tensor]

@@ -150,22 +150,27 @@ def test_the_clip_engages_and_stands_aside():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     p = [torch.zeros(4)]
-    ok = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, c1=0.1,
-              c2=0.001, step_size=-1e-3, adamw=False)
+    sched = torch.tensor([0.1, 0.001, -1e-3])
+    ok = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, adamw=False)
     with pytest.raises(TypeError, match="p must be"):
         fused_adam.adam_update([torch.zeros(4, dtype=torch.float64)],
-                               p, p, p, [False], [1.0], None, **ok)
+                               p, p, p, [False], [1.0], None, sched, **ok)
     with pytest.raises(TypeError, match="mu must be"):
         fused_adam.adam_update(p, p, [torch.zeros(4, dtype=torch.float16)],
-                               p, [False], [1.0], None, **ok)
+                               p, [False], [1.0], None, sched, **ok)
     with pytest.raises(ValueError, match="contiguous"):
         fused_adam.adam_update(p, [torch.zeros(4, 2)[:, 0]], p, p, [False],
-                               [1.0], None, **ok)
+                               [1.0], None, sched, **ok)
     with pytest.raises(ValueError, match="as many elements"):
         fused_adam.adam_update(p, p, [torch.zeros(5)], p, [False], [1.0],
-                               None, **ok)
+                               None, sched, **ok)
     with pytest.raises(ValueError, match="n >= 1"):
-        fused_adam.adam_update(p, p, p, p, [False, True], [1.0], None, **ok)
+        fused_adam.adam_update(p, p, p, p, [False, True], [1.0], None, sched,
+                               **ok)
+    for bad in (sched[:2], sched.double(), torch.zeros(6)[::2]):
+        with pytest.raises(ValueError, match="step's scalars"):
+            fused_adam.adam_update(p, p, p, p, [False], [1.0], None, bad,
+                                   **ok)
 
 
 # ---------------------------------------------------------------- the route
