@@ -1,12 +1,16 @@
 """Configuration for models and training.
 
 A copy of ``meme_challenge_tpu/core/config.py``: every field keeps its name
-and default, so ``configs/*.json`` and the CLI flags read unchanged. Fields
-that only steer the JAX compiler (``scan_unroll``, ``mesh_*``,
-``dispatch_unroll``, ...) are accepted and have no effect in the port;
-``steps_per_dispatch`` groups steps into a plain loop, and ``remat`` /
+and default, so ``configs/*.json``, the CLI flags and the checkpoints'
+config records read unchanged. The port accepts these fields and reads none
+of them: ``scan_unroll``; ``dispatch_unroll``, ``compute_dtype``,
+``preload_features``, ``num_workers``, ``conf_th``, ``min_bb``, ``num_bb``,
+``fc_dim`` and ``dropout`` of ``TrainConfig``. ``steps_per_dispatch`` only
+groups uploads (``train/steps.upload_steps``), and ``remat`` /
 ``remat_policy`` checkpoint each encoder layer where autograd records it
-(``torch.utils.checkpoint``; no effect in inference).
+(``torch.utils.checkpoint``; no effect in inference). ``mesh_shape`` /
+``mesh_axes`` lay the folds, data and model over the process group
+(``parallel/``).
 
 TPU-first redesign of the reference's three-tier config system
 (argparse in train_template.py:424-506, JSON model configs via
@@ -46,31 +50,32 @@ class UniterConfig:
     img_dim: int = 2048            # region feature dim (utils/const.py IMG_DIM)
     pos_dim: int = 7               # 7-d bbox encoding
     layer_norm_eps: float = 1e-12  # apex FusedLayerNorm eps in every block
-    dtype: str = "float32"         # compute dtype under jit ("bfloat16" for speed)
-    remat: bool = False            # jax.checkpoint each encoder layer
-    scan_unroll: int = 0           # lax.scan unroll over layers; 0 = auto
-                                   # (full unroll on TPU — XLA fuses across
-                                   # layers, +30% step throughput measured —
-                                   # rolled elsewhere for compile speed)
-    remat_policy: str = "full"     # "full" | "dots" (save matmul outputs,
-                                   # recompute elementwise — cheap remat)
+    dtype: str = "float32"         # the encoder's compute dtype
+                                   # ("bfloat16": --compute_bf16)
+    remat: bool = False            # recompute each encoder layer in the
+                                   # backward (torch.utils.checkpoint)
+    scan_unroll: int = 0           # accepted; no effect in the port
+    remat_policy: str = "full"     # "full" recomputes the whole layer;
+                                   # "dots" keeps the matrix products'
+                                   # outputs and recomputes the rest
     use_pallas_attention: bool = False  # fused Pallas attention kernel (ops/attention.py)
     pallas_blocked: bool = False   # pair-blocked grid variant of the kernel
                                    # (up to 24 (b,h) pairs per step instead
                                    # of one sample — see ops/attention.py
                                    # _largest_block; per-block dropout
                                    # streams)
-    attention_score_dtype: str = "float32"  # storage dtype of the S^2 score/
-                                   # prob tensors on the XLA attention path.
-                                   # "bfloat16" halves the dominant HBM
-                                   # traffic of the step (softmax math stays
-                                   # fp32 inside the fusion; custom VJP keeps
-                                   # the saved residual bf16 too)
-    dropout_bits_dtype: str = "uint32"  # PRNG word width for dropout masks.
-                                   # "uint8" quarters mask-tensor traffic;
-                                   # the keep-threshold quantizes to 1/256
-                                   # (rate 0.1 -> 26/256; the inverse scale
-                                   # uses the exact effective rate)
+    attention_score_dtype: str = "float32"  # storage dtype of the S^2
+                                   # scores and probabilities on the plain
+                                   # (unfused) attention path: "bfloat16"
+                                   # stores them in bf16, softmax math in
+                                   # fp32 (the fused kernels ignore it)
+    dropout_bits_dtype: str = "uint32"  # word width of the encoder's
+                                   # threshold dropout draws (the hidden
+                                   # states', and the plain path's attention
+                                   # probabilities'): "uint8" quantizes the
+                                   # keep threshold to 1/256 (rate 0.1 ->
+                                   # 26/256; the inverse scale uses the
+                                   # effective rate)
 
     @property
     def head_dim(self) -> int:
@@ -138,17 +143,12 @@ class TrainConfig:
     lr: float = 1e-4
     beta1: float = 0.9
     beta2: float = 0.999
-    adam_mu_dtype: str = "bfloat16"     # Adam first-moment storage: bf16
-                                        # halves the largest optimizer-state
-                                        # HBM stream (+2% step, measured);
-                                        # "float32" for bitwise fp32 moments
-    adam_nu_dtype: str = "bfloat16"     # Adam second-moment storage (moment
-                                        # math stays fp32, optim.py). bf16
-                                        # measured NEUTRAL in r2b but +2.5%
-                                        # after the QKV pre-concat (981.7 →
-                                        # 1006.6 memes/s same-window, r3) —
-                                        # also halves nu state memory.
-                                        # "float32" for bitwise fp32 moments
+    adam_mu_dtype: str = "bfloat16"     # Adam first-moment storage
+                                        # (moment math in fp32, optim.py);
+                                        # "float32" for fp32 moments
+    adam_nu_dtype: str = "bfloat16"     # Adam second-moment storage, the
+                                        # same; bf16 halves the moments'
+                                        # memory
     weight_decay: float = 1e-3
     max_grad_norm: float = 5.0
     gradient_accumulation: int = 1
@@ -165,33 +165,25 @@ class TrainConfig:
     num_workers: int = 0
 
     # Data / sampling
-    device_resident_data: bool = False  # preload whole datasets to HBM and
-                                        # gather micro-batches on device
-                                        # (index-bytes per step instead of
-                                        # feature-megabytes; pointwise-equal
-                                        # to host batches — test_train)
-    steps_per_dispatch: int = 0         # optimizer steps per jitted dispatch
-                                        # (lax.scan chunk). 0 = auto: 8 with
-                                        # device-resident index batches
-                                        # (chunk upload is KBs), 1 for host
-                                        # batches (a chunk would stack K×
-                                        # accum feature-MBs). Pointwise-
-                                        # equal to unchunked — test_train
-    dispatch_unroll: int = 1            # unroll of the chunk's scan over
-                                        # optimizer steps: >1 lets XLA
-                                        # overlap step k's optimizer tail
-                                        # with step k+1's first forward
-                                        # (same ops/order — numerics equal)
-    fuse_accum: bool = False            # compute the accumulated gradient
-                                        # as ONE fused fwd/bwd over the
+    device_resident_data: bool = False  # upload whole datasets to the
+                                        # device once and gather each
+                                        # micro-batch there from indices
+                                        # (steps.gather_micro); equal to
+                                        # host batches
+    steps_per_dispatch: int = 0         # optimizer steps that share one
+                                        # upload (steps.upload_steps); the
+                                        # steps run one by one, equal to
+                                        # single steps. 0 = auto: 8 with
+                                        # index batches, 1 with host batches
+                                        # (steps.steps_per_upload)
+    dispatch_unroll: int = 1            # accepted; no effect in the port
+    fuse_accum: bool = False            # one forward and backward over the
                                         # flattened [accum·B] batch instead
-                                        # of a scan of micro backwards.
-                                        # Loss stays the mean of per-micro
-                                        # masked means (exact accumulation
-                                        # semantics); only the dropout
-                                        # stream differs. +30% on
-                                        # UNITER-base b16×a2 (BASELINE r4);
-                                        # costs accum× activation memory
+                                        # of one a micro-batch
+                                        # (steps.accumulate); the loss stays
+                                        # the mean of the per-micro masked
+                                        # means, the dropout draws differ;
+                                        # accum× the activation memory
     confounder_repeat: int = 1
     object_conf_thresh: float = 0.0
     num_folds: int = 0                  # 0 = default split, -1 = all folds
@@ -210,8 +202,9 @@ class TrainConfig:
     # --- TPU-native additions ---
     mesh_shape: Tuple[int, ...] = ()    # () = single chip; e.g. (4, 2) fold x data
     mesh_axes: Tuple[str, ...] = ("fold", "data")
-    compute_dtype: str = "float32"      # "bfloat16" for MXU speed
-    preload_features: bool = True       # dense host arrays instead of per-item np.load
+    compute_dtype: str = "float32"      # accepted; no effect in the port
+                                        # (UniterConfig.dtype is read)
+    preload_features: bool = True       # accepted; no effect in the port
 
     @property
     def n_classes(self) -> int:

@@ -90,9 +90,10 @@ from meme_challenge_tpu_torch.train.steps import (
     fold_gather,
     gather_micro,
     make_fold_train_step,
-    stack_chunk,
     stack_for_accum,
+    steps_per_upload,
     to_device,
+    upload_steps,
 )
 
 logger = logging.getLogger("meme_challenge_tpu_torch.fold_parallel")
@@ -462,21 +463,15 @@ class FoldParallelTrainer:
             logger.info("[fold-parallel] all %i folds already done; "
                         "skipping training", self.num_folds)
             return self.fold_val_metrics
-        # K steps per upload when the per-step uploads are indices; the
-        # steps themselves run one by one (steps.make_train_multi_step)
-        K = c.steps_per_dispatch or (8 if self._gather else 1)
+        K = steps_per_upload(c, self._gather)
         keys = self._batch_keys(train=True)
         for epoch in range(self.start_epoch, c.max_epoch + 1):
             epoch_start = time.perf_counter()
             losses, memes = [], 0
-            for kind, x in chunk_batches(self._fold_device_batches(), K):
-                group = x if kind == "chunk" else [x]
-                host = stack_chunk(group)
-                memes += int(host["sample_mask"].sum())
-                batch = to_device(host, self.device, keys=keys)
-                for i in range(len(group)):
-                    losses.append(self._step(
-                        {k: v[i] for k, v in batch.items()}))
+            for group in chunk_batches(self._fold_device_batches(), K):
+                memes += sum(int(h["sample_mask"].sum()) for h in group)
+                for batch in upload_steps(group, self.device, keys):
+                    losses.append(self._step(batch))
             # the epoch's one host sync
             loss = float(torch.stack(losses).float().mean().cpu())
             seconds = time.perf_counter() - epoch_start

@@ -6,20 +6,22 @@ over a ``data.pretrain.MetaLoader`` stream, which holds the sampled task
 fixed across an accumulation group, so each optimizer step mixes
 micro-batches of one task (reference pretrain_meme_dataset.py:44-47).
 
-- A step is ``_task_prepare`` → ``_task_apply`` → ``_task_reduce`` per
-  micro-batch with a backward each, the gradients summed and divided by
-  ``accum``; or, with ``fuse_accum``, one forward and backward over the
-  flattened ``[accum·B]`` batch whose loss is the mean of the per-micro
-  masked means. The optimizer and schedule are ``train/optim.py`` and
-  ``train/schedules.py``, over ``steps_per_epoch × max_epoch`` steps.
+- A step is the fine-tune step's body, ``steps.accumulate``, with
+  ``_task_prepare`` → ``_task_apply`` as its forward and ``_task_reduce``
+  as its per-micro loss: a backward a micro-batch, the gradients summed and
+  divided by ``accum``; or, with ``fuse_accum``, one forward and backward
+  over the flattened ``[accum·B]`` batch whose loss is the mean of the
+  per-micro masked means. It runs eagerly (no CUDA graph). The optimizer
+  and schedule are ``train/optim.py`` and ``train/schedules.py``, over
+  ``steps_per_epoch × max_epoch`` steps.
 - Index mode (``--device_resident_data``): the corpus's arrays are uploaded
   once; a micro-batch gathers its features on the device
   (``steps.gather_micro``), and MRFR's zeroed features and targets and
   MRC's one-hot labels are built there.
 - Step k draws its dropout from ``core.seeding.dropout_generator(seed, k)``
   (JAX ``fold_in(root, state.step)``): ``steps_per_dispatch`` only groups
-  consecutive same-task steps into one upload, and chunked training equals
-  unchunked.
+  consecutive same-task steps into one upload (``steps.upload_steps``), and
+  chunked training equals unchunked.
 - Kill-and-resume in O(1): one atomic torch file holds the weights, the
   optimizer state, ``step``/``next_step``, the python and numpy global RNG
   states at save time, ``MetaLoader.state()`` and the micro-batches
@@ -45,14 +47,17 @@ import torch
 from meme_challenge_tpu_torch.core.seeding import dropout_generator
 from meme_challenge_tpu_torch.models.ot import optimal_transport_dist
 from meme_challenge_tpu_torch.train.checkpoint import ModelSaver, tree_to
+from meme_challenge_tpu_torch.train.observability import span
 from meme_challenge_tpu_torch.train.optim import Optimizer
 from meme_challenge_tpu_torch.train.schedules import make_schedule
 from meme_challenge_tpu_torch.train.steps import (
+    accumulate,
     create_train_state,
     gather_micro,
-    stack_chunk,
     stack_for_accum,
+    steps_per_upload,
     to_device,
+    upload_steps,
 )
 
 logger = logging.getLogger("meme_challenge_tpu_torch.pretrain")
@@ -212,43 +217,19 @@ class PretrainTrainer:
         """One optimizer step of ``task`` over device tensors ``[accum, B,
         ...]``; dropout draws from ``generator``. Returns the per-micro
         losses ``[accum]``, on the device."""
-        accum = self.config.gradient_accumulation
-        model, params, ot = self.model, self._params, self.ot_weight
-        for p in params.values():
-            p.grad = None
-        fuse = self.config.fuse_accum and accum > 1
-        if fuse:
-            flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
-                    for k, v in batch.items()}
-            flat = _task_prepare(model, flat, task, self.data)
-            outs = _task_apply(model, flat, task, generator)
+        def forward(batch):
+            batch = _task_prepare(self.model, batch, task, self.data)
+            return _task_apply(self.model, batch, task, generator), batch
 
-            def micro(x, a):
-                return x.reshape((accum, -1) + tuple(x.shape[1:]))[a]
+        def loss(outs, batch):
+            return _task_reduce(outs, batch, task, self.ot_weight), None
 
-            losses = torch.stack([_task_reduce(
-                tuple(micro(o, a) for o in outs),
-                {k: micro(v, a) for k, v in flat.items()}, task, ot)
-                for a in range(accum)])
-            losses.mean().backward()
-            losses = losses.detach()
-        else:
-            losses = []
-            for a in range(accum):
-                loss = _task_loss(model, {k: v[a] for k, v in batch.items()},
-                                  task, generator, ot, self.data)
-                loss.backward()  # sums into .grad in micro order
-                losses.append(loss.detach())
-            losses = torch.stack(losses)
-        # a parameter the task does not reach has a zero gradient, as in JAX
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params.values()]
-        if not fuse and accum > 1:
-            grads = torch._foreach_div(grads, float(accum))
-        self.optimizer.step(params, dict(zip(params, grads)),
-                            self.state.opt_state)
-        for p in params.values():
-            p.grad = None
+        with span("meme.step"):
+            losses, _ = accumulate(
+                self._params, batch, self.config.gradient_accumulation,
+                self.config.fuse_accum, forward, loss,
+                lambda grads: self.optimizer.step(self._params, grads,
+                                                  self.state.opt_state))
         self.state.step += 1
         return losses
 
@@ -337,7 +318,7 @@ class PretrainTrainer:
         # (task, device losses [accum]) per step: fetched at the cadence
         step_log: list = []
         fetched: Dict[str, list] = {}
-        K = c.steps_per_dispatch or (8 if self.data is not None else 1)
+        K = steps_per_upload(c, self.data is not None)
         pending: list = []
         clock = [time.perf_counter(), None]  # last mark, task stepped last
 
@@ -360,12 +341,11 @@ class PretrainTrainer:
                 return
             task = pending[0][0]
             # one upload for a run of same-task steps
-            chunk = to_device(stack_chunk([b for _, b in pending]),
-                              self.device, keys=pending[0][1])
-            for i, (_, host) in enumerate(pending):
+            hosts = [b for _, b in pending]
+            for host, batch in zip(hosts, upload_steps(hosts, self.device,
+                                                       hosts[0])):
                 gen = dropout_generator(c.seed, self.state.step, self.device)
-                step_log.append((task, self.step(
-                    task, {k: v[i] for k, v in chunk.items()}, gen)))
+                step_log.append((task, self.step(task, batch, gen)))
                 self.task_memes[task] = (self.task_memes.get(task, 0)
                                          + int(host["sample_mask"].sum()))
                 mark(task)

@@ -5,19 +5,24 @@ so a "step" is a Python function over device tensors, not a compiled
 program; on a card the single-model train step is captured once as a CUDA
 graph and replayed, the closest thing to JAX's compiled step:
 
-- :func:`make_train_step`: one optimizer step over an ``[accum, B, ...]``
-  batch. Per micro-batch a backward, the gradients summed in micro order
-  and divided by ``accum`` (reference train_template.py:89-109); or, with
+- :func:`accumulate`: one optimizer step's device work over an
+  ``[accum, B, ...]`` batch, for any forward and per-micro loss. Per
+  micro-batch a backward, the gradients summed in micro order and divided
+  by ``accum`` (reference train_template.py:89-109); or, with
   ``fuse_accum``, one forward and backward over the flattened ``[accum·B]``
   batch whose loss is the mean of the per-micro masked means. Losses and
   probabilities stay on the device: a step fetches nothing to the host.
-  Where :func:`step_captures` holds, each input signature
-  (:func:`step_signature`) is captured once and replayed
-  (:class:`_StepGraphs`; ``GRAPH_CAPTURES``, ``GRAPH_REPLAYS`` count them):
-  the host issues a few copies and one graph launch a step instead of
-  thousands of kernel launches.
-- :func:`make_train_multi_step` runs ``--steps_per_dispatch`` steps as a
-  plain loop (``--dispatch_unroll`` has nothing to unroll): the numbers are
+  The fine-tune step (:func:`make_train_step`) and the pretraining step
+  (``pretrain_driver.PretrainTrainer.step``) both run it.
+- :func:`make_train_step`: the fine-tune step. Where :func:`step_captures`
+  holds, each input signature (:func:`step_signature`) is captured once
+  and replayed (:class:`_StepGraphs`; ``GRAPH_CAPTURES``, ``GRAPH_REPLAYS``
+  count them): the host issues a few copies and one graph launch a step
+  instead of thousands of kernel launches.
+- :func:`steps_per_upload` steps share one upload (``--steps_per_dispatch``;
+  ``--dispatch_unroll`` has nothing to unroll): the trainers group their
+  host step batches (:func:`chunk_batches`), upload each group at once
+  (:func:`upload_steps`) and run its steps one by one. The numbers are
   those of single steps, because every step's dropout generator is made
   from (seed, optimizer step) (``core/seeding.dropout_generator``).
 - Host batches stay numpy until :func:`to_device`, the trainer boundary:
@@ -51,7 +56,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from meme_challenge_tpu_torch.core.seeding import dropout_generator
 from meme_challenge_tpu_torch.train.observability import span
 
 # batch keys the model reads; in eval everything else (ids, labels,
@@ -85,6 +89,60 @@ def create_train_state(model: torch.nn.Module, optimizer) -> TrainState:
     return TrainState(model, optimizer.init(dict(model.named_parameters())))
 
 
+def accumulate(params: Dict[str, torch.Tensor],
+               batch: Dict[str, torch.Tensor], accum_steps: int,
+               fuse_accum: bool, forward: Callable, loss: Callable,
+               update: Callable):
+    """One optimizer step's device work over an ``[accum, B, ...]`` batch,
+    the body of every single-model train step. ``forward(batch)`` →
+    (outputs, batch): a tuple of per-sample outputs and the batch as the
+    loss reads it; ``loss(outputs, batch)`` → (loss, probs or None) of one
+    micro-batch; ``update(grads)`` applies ``{name: gradient}``. A
+    parameter the batch did not reach has a zero gradient, as in JAX.
+    Returns (losses ``[accum]``, probs ``[accum, ...]`` or None)."""
+    for p in params.values():
+        p.grad = None
+    if fuse_accum and accum_steps > 1:
+        def micro(x, a):
+            return x.reshape((accum_steps, -1) + tuple(x.shape[1:]))[a]
+
+        with span("meme.step.forward"):
+            outputs, flat = forward({k: v.reshape((-1,) + tuple(v.shape[2:]))
+                                     for k, v in batch.items()})
+            outs = [loss(tuple(micro(o, a) for o in outputs),
+                         {k: micro(v, a) for k, v in flat.items()})
+                    for a in range(accum_steps)]
+            losses = torch.stack([o[0] for o in outs])
+            total = losses.mean()
+        with span("meme.step.backward"):
+            total.backward()
+        probs = [o[1] for o in outs]
+        losses = losses.detach()
+    else:
+        losses, probs = [], []
+        for a in range(accum_steps):
+            with span("meme.step.forward"):
+                outputs, micro_batch = forward({k: v[a]
+                                                for k, v in batch.items()})
+                micro_loss, pr = loss(outputs, micro_batch)
+            with span("meme.step.backward"):
+                micro_loss.backward()  # sums into .grad in micro order
+            losses.append(micro_loss.detach())
+            probs.append(pr)
+        losses = torch.stack(losses)
+    probs = None if probs[0] is None else torch.stack(probs).detach()
+    with span("meme.step.optimizer"):
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params.values()]
+        if accum_steps > 1 and not fuse_accum:
+            # in place: the fresh .grad tensors are the step's own
+            torch._foreach_div_(grads, float(accum_steps))
+        update(dict(zip(params, grads)))
+        for p in params.values():
+            p.grad = None
+    return losses, probs
+
+
 def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                     accum_steps: int = 1, gather_data: bool = False,
                     fuse_accum: bool = False):
@@ -107,58 +165,20 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     without the graph."""
     params = dict(model.named_parameters())
 
-    def forward(batch, generator, data):
-        if gather_data:
-            batch = gather_micro(data, batch)
-        return model(batch, deterministic=False, generator=generator), batch
+    def loss(outputs, batch):
+        return loss_fn(outputs[0], batch["labels"], batch["sample_mask"])
 
     def run(batch, generator, data, update):
         """The step's device work, ``update(grads)`` the optimizer's:
         (losses, probs)."""
-        for p in params.values():
-            p.grad = None
-        if fuse_accum and accum_steps > 1:
-            with span("meme.step.forward"):
-                flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
-                        for k, v in batch.items()}
-                logits, flat = forward(flat, generator, data)
-                logits = logits.reshape((accum_steps, -1)
-                                        + tuple(logits.shape[1:]))
-                labels = flat["labels"].reshape(accum_steps, -1)
-                masks = flat["sample_mask"].reshape(accum_steps, -1)
-                outs = [loss_fn(logits[a], labels[a], masks[a])
-                        for a in range(accum_steps)]
-                losses = torch.stack([o[0] for o in outs])
-                total = losses.mean()
-            with span("meme.step.backward"):
-                total.backward()
-            probs = torch.stack([o[1] for o in outs]).detach()
-            losses = losses.detach()
-        else:
-            losses, probs = [], []
-            for a in range(accum_steps):
-                with span("meme.step.forward"):
-                    micro = {k: v[a] for k, v in batch.items()}
-                    logits, micro = forward(micro, generator, data)
-                    loss, pr = loss_fn(logits, micro["labels"],
-                                       micro["sample_mask"])
-                with span("meme.step.backward"):
-                    loss.backward()  # sums into .grad in micro order
-                losses.append(loss.detach())
-                probs.append(pr.detach())
-            losses, probs = torch.stack(losses), torch.stack(probs)
-        with span("meme.step.optimizer"):
-            # a parameter the batch did not reach has a zero gradient, as
-            # in JAX
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params.values()]
-            if accum_steps > 1 and not fuse_accum:
-                # in place: the fresh .grad tensors are the step's own
-                torch._foreach_div_(grads, float(accum_steps))
-            update(dict(zip(params, grads)))
-            for p in params.values():
-                p.grad = None
-        return losses, probs
+        def forward(batch):
+            if gather_data:
+                batch = gather_micro(data, batch)
+            return (model(batch, deterministic=False,
+                          generator=generator),), batch
+
+        return accumulate(params, batch, accum_steps, fuse_accum, forward,
+                          loss, update)
 
     def eager(state: TrainState, batch: Dict[str, torch.Tensor],
               generator: torch.Generator,
@@ -478,27 +498,6 @@ def make_fold_train_step(model, loss_fn: Callable, optimizer,
     return train_step
 
 
-def make_train_multi_step(train_step: Callable, seed: int, device):
-    """``steps_per_dispatch`` optimizer steps from one stacked chunk
-    ``[K, accum, B, ...]``, as a plain loop of ``train_step``: step k draws
-    its dropout from ``dropout_generator(seed, state.step)``, the generator
-    a single step at that count gets, so chunked and unchunked training are
-    equal. Returns (state, {"loss": [K, accum], "probs": [K, accum, ...]})."""
-
-    def multi_step(state: TrainState, batches: Dict[str, torch.Tensor],
-                   data: Optional[Dict[str, torch.Tensor]] = None):
-        n = next(iter(batches.values())).shape[0]
-        outs = []
-        for i in range(n):
-            gen = dropout_generator(seed, state.step, device)
-            state, out = train_step(state, {k: v[i] for k, v in
-                                            batches.items()}, gen, data)
-            outs.append(out)
-        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-
-    return multi_step
-
-
 def stack_for_accum(batches: list) -> Dict[str, np.ndarray]:
     """Stack ``accum`` host micro-batches into one [accum, ...] numpy batch
     (uploaded whole by :func:`to_device`)."""
@@ -507,23 +506,36 @@ def stack_for_accum(batches: list) -> Dict[str, np.ndarray]:
                 for key in batches[0]}
 
 
-def stack_chunk(chunk: list) -> Dict[str, np.ndarray]:
-    """Stack K per-step batches into the [K, ...] input of
-    :func:`make_train_multi_step`."""
-    return stack_for_accum(chunk)
+def steps_per_upload(config, index_batches: bool) -> int:
+    """The optimizer steps that share one upload (``--steps_per_dispatch``;
+    0 = auto: 8 when a step uploads indices, ``index_batches``, of a few
+    hundred bytes, 1 when it uploads features)."""
+    return config.steps_per_dispatch or (8 if index_batches else 1)
 
 
-def chunk_batches(stream, steps_per_dispatch: int):
-    """Group a batch stream: ``("chunk", [K batches])`` for each full run
-    and ``("single", batch)`` for the tail."""
-    pending: list = []
+def chunk_batches(stream, steps: int):
+    """Group a batch stream into lists of ``steps`` batches, the last list
+    shorter when the stream runs out."""
+    group: list = []
     for item in stream:
-        pending.append(item)
-        if len(pending) == steps_per_dispatch:
-            yield "chunk", pending
-            pending = []
-    for item in pending:
-        yield "single", item
+        group.append(item)
+        if len(group) == steps:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def upload_steps(group: list, device, keys) -> list:
+    """The device batches of a group of host step batches, uploaded at
+    once: one batch by :func:`to_device`; more stacked into one
+    ``[K, ...]`` array (:func:`stack_for_accum`), uploaded whole and
+    returned as its K per-step views. Every step's numbers are those of an
+    upload of its own."""
+    if len(group) == 1:
+        return [to_device(group[0], device, keys=keys)]
+    batch = to_device(stack_for_accum(group), device, keys=keys)
+    return [{k: v[i] for k, v in batch.items()} for i in range(len(group))]
 
 
 def gather_micro(data: Dict[str, torch.Tensor],

@@ -23,9 +23,9 @@ set and the metrics JSON; ``--max_epoch 0`` serves
 ``model_path/model_save_name`` as it is. ``--pretrained_model_file`` reads
 reference torch dumps and the JAX package's flax-msgpack ``ModelSaver``
 dumps (fine-tuned MemeUniter or UNITER pretraining). ``--steps_per_dispatch``
-and ``--dispatch_unroll`` run their steps as a plain loop with the numbers
-of single steps; ``--slow_rng`` is accepted and does nothing (a JAX PRNG
-switch).
+only groups uploads (``steps.upload_steps``), with the numbers of single
+steps; ``--dispatch_unroll`` and ``--slow_rng`` are accepted and do nothing
+(JAX compiler and PRNG switches).
 
 ``--mesh_shape 1 --mesh_axes fold`` with ``--num_folds`` other than 0
 trains all folds at once as one fold-stacked model on the one card

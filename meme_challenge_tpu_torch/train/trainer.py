@@ -55,13 +55,13 @@ from meme_challenge_tpu_torch.train.steps import (
     chunk_batches,
     create_train_state,
     make_eval_step,
-    make_train_multi_step,
     make_train_step,
     sigmoid_probs,
     softmax_probs,
-    stack_chunk,
     stack_for_accum,
+    steps_per_upload,
     to_device,
+    upload_steps,
 )
 
 logger = logging.getLogger("meme_challenge_tpu_torch.train")
@@ -131,12 +131,6 @@ class Trainer:
             self.model, self.loss_fn, self.optimizer,
             accum_steps=c.gradient_accumulation,
             gather_data=self._gather_train, fuse_accum=c.fuse_accum)
-        # K steps per chunk, run as a plain loop with the numbers of single
-        # steps (steps.make_train_multi_step); auto as in the JAX package
-        self.steps_per_dispatch = c.steps_per_dispatch or (
-            8 if self._gather_train else 1)
-        self.train_multi_step = make_train_multi_step(
-            self.train_step, c.seed, self.device)
         probs_fn = softmax_probs if c.loss_func == "ce" else sigmoid_probs
         self._eval_steps = {
             False: make_eval_step(self.model, probs_fn),
@@ -211,39 +205,28 @@ class Trainer:
         start = time.time()
         keys = (("indices",) if self._gather_train
                 else MODEL_INPUT_KEYS) + TRAIN_KEYS
+        K = steps_per_upload(c, self._gather_train)
         for epoch in range(1, c.max_epoch + 1):
             losses, epoch_probs, epoch_labels, epoch_masks = [], [], [], []
             epoch_start = time.perf_counter()
             n_steps = 0
             train_data = self._data_for(self.train_loader)
 
-            def run(kind, host):
-                nonlocal n_steps
-                batch = to_device(host, self.device, keys=keys)
-                if kind == "chunk":
-                    self.state, out = self.train_multi_step(
-                        self.state, batch, train_data)
-                else:
+            for group in chunk_batches(
+                    self._device_batches(self.train_loader), K):
+                for host, batch in zip(group, upload_steps(group, self.device,
+                                                           keys)):
                     gen = dropout_generator(c.seed, self.state.step,
                                             self.device)
                     self.state, out = self.train_step(self.state, batch, gen,
                                                       train_data)
-                # device tensors stay in flight; fetched once per epoch
-                losses.append(out["loss"].reshape(-1))
-                epoch_probs.append(out["probs"])
-                epoch_labels.append(host["labels"].reshape(-1))
-                epoch_masks.append(host["sample_mask"])
-                k = len(host["labels"]) if kind == "chunk" else 1
-                n_steps += k
-                self.total_iters += k * c.gradient_accumulation
-
-            stream = self._device_batches(self.train_loader)
-            if self.steps_per_dispatch > 1:
-                for kind, x in chunk_batches(stream, self.steps_per_dispatch):
-                    run(kind, stack_chunk(x) if kind == "chunk" else x)
-            else:
-                for x in stream:
-                    run("single", x)
+                    # device tensors stay in flight; fetched once per epoch
+                    losses.append(out["loss"])
+                    epoch_probs.append(out["probs"])
+                    epoch_labels.append(host["labels"].reshape(-1))
+                    epoch_masks.append(host["sample_mask"])
+                    n_steps += 1
+                    self.total_iters += c.gradient_accumulation
 
             # one host sync for the epoch
             n_cls = (epoch_probs[0].shape[-1]

@@ -1,9 +1,10 @@
 """PyTorch port: the named host ranges (``train/observability.span``) on the
-train and scoring path, as a CPU ``torch.profiler`` records them: their names
-and counts a step and a batch, their nesting, that none is a user annotation
-(the profiler would mirror one onto the device's timeline, where a trace's
-reader counts it as a kernel), and that the numbers of a step and of a
-scoring pass are bit for bit the same with the profiler on and off."""
+train, pretraining and scoring path, as a CPU ``torch.profiler`` records
+them: their names and counts a step and a batch, their nesting, that none is
+a user annotation (the profiler would mirror one onto the device's timeline,
+where a trace's reader counts it as a kernel), and that the numbers of a
+step and of a scoring pass are bit for bit the same with the profiler on and
+off."""
 import collections
 
 import numpy as np
@@ -12,13 +13,20 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
-from meme_challenge_tpu_torch.core.seeding import dropout_generator
+from meme_challenge_tpu_torch.core.seeding import (
+    dropout_generator,
+    torch_generator,
+)
+from meme_challenge_tpu_torch.data.pretrain import pretrain_corpus
 from meme_challenge_tpu_torch.data.meme_dataset import BatchLoader, MemeDataset
 from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
 from meme_challenge_tpu_torch.models.uniter import FoldStack, MemeUniter
 from meme_challenge_tpu_torch.train import losses as TL
 from meme_challenge_tpu_torch.train import observability
 from meme_challenge_tpu_torch.train.optim import Optimizer
+from meme_challenge_tpu_torch.train.pretrain_driver import PretrainTrainer
+from meme_challenge_tpu_torch.train.pretrain_init import init_pretrain_model
+from meme_challenge_tpu_torch.train.pretrain_uniter import build_task_loaders
 from meme_challenge_tpu_torch.train.steps import (
     EvalPipeline,
     TrainState,
@@ -177,6 +185,82 @@ def test_fold_train_step_ranges():
                                "meme.step.optimizer": 1}
     (outer,) = [e for e in events if e.name == "meme.step"]
     assert all(_inside(e, outer) for e in events)
+
+
+@pytest.fixture(scope="module")
+def pretrain_batches(tmp_path_factory):
+    """Two host ITM batches ``[accum 2, B 3, ...]`` of a synthetic corpus
+    and the corpus's vocabulary size."""
+    root = str(tmp_path_factory.mktemp("pretrain_tracing"))
+    paths = make_synthetic_dataset(root, n_train=12, n_dev=4, img_dim=16)
+    tok = BertTokenizer(paths["vocab"])
+    ds = pretrain_corpus(root, paths["feature_dir"], tok, max_txt_len=8,
+                         max_bb=6, img_dim=16)
+    np.random.seed(0)
+    loader = iter(build_task_loaders(TrainConfig(batch_size=3), ds, tok,
+                                     {"itm": 1}, 0.15, 0.5, 0.15)["itm"])
+    return ([stack_for_accum([next(loader), next(loader)])
+             for _ in range(2)], tok.vocab_size)
+
+
+def _pretrain(batches, vocab_size, fuse_accum, profiled):
+    """One ITM step (with the OT term) a host batch through
+    ``PretrainTrainer.step``, dropout on, as the trainer feeds them.
+    Returns (losses, parameters, profiler)."""
+    model = init_pretrain_model(UniterConfig(**dict(TINY,
+                                                    vocab_size=vocab_size)),
+                                8, "cpu", torch_generator(0, "cpu"))
+    trainer = PretrainTrainer(
+        TrainConfig(gradient_accumulation=2, fuse_accum=fuse_accum), model,
+        None, steps_per_epoch=2, ot_weight=0.1)
+    prof = profile(activities=[ProfilerActivity.CPU]) if profiled else None
+    if prof is not None:
+        prof.start()
+    losses = [trainer.step("itm", to_device(host, "cpu", keys=host),
+                           dropout_generator(7, trainer.state.step, "cpu"))
+              for host in batches]
+    if prof is not None:
+        prof.stop()
+    return (torch.stack(losses),
+            {k: v.detach().clone() for k, v in model.state_dict().items()},
+            prof)
+
+
+@pytest.mark.parametrize("fuse_accum", [False, True],
+                         ids=["scan_accum", "fused_accum"])
+def test_pretrain_step_ranges(pretrain_batches, fuse_accum):
+    """A pretraining step opens the fine-tune step's ranges: ``meme.step``
+    around a forward and a backward a micro-batch (one of each fused) and
+    one optimizer phase, in order and apart."""
+    batches, vocab_size = pretrain_batches
+    *_, prof = _pretrain(batches[:1], vocab_size, fuse_accum, profiled=True)
+    events = _events(prof, "meme.step")
+    passes = 1 if fuse_accum else 2
+    assert _counts(events) == {
+        "meme.step": 1, "meme.step.forward": passes,
+        "meme.step.backward": passes, "meme.step.optimizer": 1}
+    (step,) = [e for e in events if e.name == "meme.step"]
+    phases = sorted((e for e in events if e.name != "meme.step"),
+                    key=lambda e: e.time_range.start)
+    assert all(_inside(e, step) for e in phases)
+    assert [e.name.rsplit(".", 1)[1] for e in phases] == (
+        ["forward", "backward"] * passes + ["optimizer"])
+    assert all(a.time_range.end <= b.time_range.start
+               for a, b in zip(phases, phases[1:]))
+    assert not [e.name for e in events if e.is_user_annotation]
+
+
+@pytest.mark.parametrize("fuse_accum", [False, True],
+                         ids=["scan_accum", "fused_accum"])
+def test_pretrain_numbers_same_under_the_profiler(pretrain_batches,
+                                                  fuse_accum):
+    """Two pretraining steps with dropout on: the losses and every
+    parameter bit for bit the same with the ranges recorded and not."""
+    batches, vocab_size = pretrain_batches
+    la, sa, _ = _pretrain(batches, vocab_size, fuse_accum, profiled=False)
+    lb, sb, _ = _pretrain(batches, vocab_size, fuse_accum, profiled=True)
+    assert la.shape == (2, 2) and torch.equal(la, lb)
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
 @pytest.fixture(scope="module")

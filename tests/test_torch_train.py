@@ -1,9 +1,9 @@
 """PyTorch port, training: train/losses.py, train/schedules.py and
 train/optim.py against the JAX functions and the optax chain over several
 steps; the train step in both accumulation modes against the JAX step with
-a padded final micro-batch (dropout off); chunked steps against single
-steps (dropout on); full-state resume; scalar logs, the profiler trace
-and the training meta."""
+a padded final micro-batch (dropout off); a trainer epoch with two steps
+an upload against one step an upload (dropout on); full-state resume;
+scalar logs, the profiler trace and the training meta."""
 import json
 import os
 
@@ -49,10 +49,18 @@ from meme_challenge_tpu_torch.train.optim import (
 )
 from meme_challenge_tpu_torch.train.steps import (
     create_train_state,
-    make_train_multi_step,
     make_train_step,
 )
+from meme_challenge_tpu_torch.train.trainer import Trainer
+from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
 from meme_challenge_tpu_torch.core.seeding import dropout_generator
+from meme_challenge_tpu_torch.data.meme_dataset import BatchLoader, MemeDataset
+from meme_challenge_tpu_torch.data.tokenizer import BertTokenizer
+from meme_challenge_tpu_torch.models.uniter import MemeUniter
+from meme_challenge_tpu_torch.utils.synthetic import (
+    make_synthetic_dataset,
+    make_vocab,
+)
 
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 
@@ -238,35 +246,45 @@ def test_train_step_matches_jax(fuse_accum):
     assert state.step == 2 and state.opt_state["count"] == 2
 
 
-def test_chunked_steps_equal_single_steps_with_dropout():
-    """make_train_multi_step over a chunk of 2 equals two single steps whose
-    generators come from (seed, step): dropout on, bit for bit."""
-    def run(chunked):
-        model = torch_model(flax_params(), use_pallas_attention=True)
-        opt = Optimizer("adam", 1e-3, lambda s: 1.0, mu_dtype="bfloat16",
-                        nu_dtype="bfloat16")
-        state = create_train_state(model, opt)
-        step = make_train_step(model, TL.make_loss_fn("bce_logits", 1.8),
-                               opt, accum_steps=2)
-        batches = [{k: torch.from_numpy(v) for k, v in
-                    _step_batch(10 * i).items()} for i in range(2)]
-        if chunked:
-            multi = make_train_multi_step(step, 7, "cpu")
-            state, out = multi(state, {k: torch.stack([b[k] for b in
-                                                       batches])
-                                       for k in batches[0]})
-            losses = out["loss"]
-        else:
-            losses = []
-            for b in batches:
-                state, out = step(state, b, dropout_generator(7, state.step,
-                                                              "cpu"))
-                losses.append(out["loss"])
-            losses = torch.stack(losses)
-        return model.state_dict(), losses
+def test_chunked_steps_equal_single_steps_with_dropout(tmp_path):
+    """A ``Trainer`` epoch on index-mode loaders with two steps an upload
+    (``steps_per_dispatch`` 2: a group of two and a tail of one) equals the
+    epoch with one step an upload: dropout on, every step's losses and
+    every weight bit for bit, since each step draws from (seed, step)."""
+    paths = make_synthetic_dataset(str(tmp_path), n_train=20, n_dev=8,
+                                   n_test=4, img_dim=16)
+    ds = MemeDataset(paths["train"], feature_dir=paths["feature_dir"],
+                     tokenizer=BertTokenizer(make_vocab(
+                         str(tmp_path / "vocab.txt"))),
+                     max_txt_len=8, max_bb=6, img_dim=16)
+    tiny = UniterConfig(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=64,
+                        img_dim=16, max_position_embeddings=64,
+                        initializer_range=0.2)
 
-    a, la = run(False)
-    b, lb = run(True)
+    def run(K):
+        torch.manual_seed(0)
+        cfg = TrainConfig(model_path=str(tmp_path), batch_size=4,
+                          gradient_accumulation=2, max_epoch=1,
+                          optimizer="adam", lr=1e-3, seed=7,
+                          steps_per_dispatch=K, no_model_checkpoints=True)
+        trainer = Trainer(cfg, MemeUniter(tiny),
+                          BatchLoader(ds, 4, index_batches=True),
+                          BatchLoader(ds, 4, index_batches=True))
+        step, losses = trainer.train_step, []
+
+        def record(*args):
+            state, out = step(*args)
+            losses.append(out["loss"])
+            return state, out
+
+        trainer.train_step = record
+        trainer.train_main()
+        assert trainer.state.step == 3  # 5 batches: 3 groups of 2
+        return torch.stack(losses), trainer.model.state_dict()
+
+    la, a = run(1)
+    lb, b = run(2)
     assert torch.equal(la, lb)
     assert all(torch.equal(a[k], b[k]) for k in a)
     # and dropout was on: another seed gives other losses
