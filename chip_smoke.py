@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only        # the build and phases 3, 3b
     python3 chip_smoke.py --adam-only           # the build and phase 3b
     python3 chip_smoke.py --graph-only          # the build and phase 3c
+    python3 chip_smoke.py --gemm-only           # the build and phases 3d, 3c
     python3 chip_smoke.py --uniter-large-only   # the build and phase 15
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --det-determinism
 
@@ -64,6 +65,24 @@ Phases, each of which makes the script exit non-zero if it fails:
    bit for bit; one capture and 4 replays, and a second batch shape
    captures once more and replays. Prints ms a step (synchronised), host ms
    to issue one, and the peaks of allocated and reserved memory of each.
+   The step's encoder products run the 3×TF32 GEMM (3d): its launches
+   must grow over the phase.
+3d. The encoder's 3×TF32 GEMM (``ops/linear.py``, ``ops/csrc/
+   linear_tf32x3.cu``) at UNITER-base's and UNITER-large's six product
+   shapes (M 2 560 rows, 16 memes of 160 tokens; (N, K) = (H, H), (FFN, H),
+   (H, FFN)), forward with bias, dgrad and wgrad, from random operands:
+   each within 2× the plain version's (fp32 ``F.linear`` and the add,
+   cuBLAS) error against float64, and the same bits on a second call; the
+   launch's CUDA error is checked after every launch by the wrapper. Times
+   by CUDA events: the kernel (with its split-K sum where the plan splits),
+   the plain version, and ``F.linear(x, W, b)`` (``library_ms``, a yardstick
+   the port never calls), beside the bound (2·M·N·K operations at 165
+   TFLOP/s, or the operands and output once at 3.35 TB/s), and the host ms
+   of a call of each under ``inference_mode`` (the forward as scoring calls
+   it, ``ops/linear.py: linear``; ``host_ms``, the median of 7 loops of 50
+   calls while the card is busy). Prints the six shapes' sums and their
+   ratio, the six forwards' host ms, and the shapes at which the kernel's
+   forward costs the host more than the plain version's.
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
@@ -283,6 +302,7 @@ SOURCE = {
     "fused_attention_blocked_bwd":
         "meme_challenge_tpu_torch/ops/csrc/fused_attention_bwd.cu",
     "fused_adam": "meme_challenge_tpu_torch/ops/csrc/fused_adam.cu",
+    "linear_tf32x3": "meme_challenge_tpu_torch/ops/csrc/linear_tf32x3.cu",
 }
 # why the fused Adam update's record has no library time
 ADAM_NO_LIBRARY = (
@@ -341,6 +361,26 @@ def device_ms(fn, iters: int = 20, reps: int = 5) -> tuple:
         b.synchronize()
         times.append(a.elapsed_time(b) / iters)
     return statistics.median(times), host
+
+
+def host_ms(fn, iters: int = 50, reps: int = 7) -> float:
+    """Host ms a call of ``fn``: the median over ``reps`` loops of
+    ``iters`` calls, each loop queued behind a ``torch.cuda._sleep`` long
+    enough that no call waits for the card (the launch cost alone: Python,
+    the dispatcher, ctypes, the allocator)."""
+    import torch
+
+    device_ms(fn, iters=2, reps=1)  # warms fn, sets _CYCLES_PER_MS
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(_CYCLES_PER_MS[0] * (iters * 0.2 + 5)))
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def attention_bound_ms(dtype: str, batch: int = B, heads: int = H) -> tuple:
@@ -1066,6 +1106,115 @@ def adam_phase(torch) -> dict:
     return out
 
 
+GEMM_ROWS = 2560  # 16 memes × 160 tokens, the encoder's rows a micro-batch
+GEMM_WIDTHS = {"uniter-base": (768, 3072), "uniter-large": (1024, 4096)}
+
+
+def gemm_phase(torch) -> dict:
+    """Phase 3d (see the module's notes); returns each shape's numbers and
+    the six shapes' sums."""
+    import torch.nn.functional as F
+
+    from meme_challenge_tpu_torch.ops import linear as LIN
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    out, sums = {}, {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                     "bound_ms": 0.0, "forward_host_ms": 0.0,
+                     "forward_plain_host_ms": 0.0}
+    costlier = []
+    M = GEMM_ROWS
+    for model, (h, ffn) in GEMM_WIDTHS.items():
+        for n, k in ((h, h), (ffn, h), (h, ffn)):
+            x = torch.randn(M, k, device="cuda", generator=gen)
+            w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+            b = torch.randn(n, device="cuda", generator=gen)
+            dy = torch.randn(M, n, device="cuda", generator=gen)
+            products = {
+                "forward": (lambda: LIN.linear(x, w, b),
+                            lambda: LIN.linear_plain(x, w, b),
+                            lambda: F.linear(x, w, b),
+                            lambda: x.double() @ w.double().t()
+                            + b.double(), (M, n, k)),
+                "dgrad": (lambda: LIN.dgrad(dy, w), lambda: dy @ w,
+                          lambda: torch.matmul(dy, w),
+                          lambda: dy.double() @ w.double(), (M, k, n)),
+                "wgrad": (lambda: LIN.wgrad(dy, x), lambda: dy.t() @ x,
+                          lambda: torch.matmul(dy.t(), x),
+                          lambda: dy.double().t() @ x.double(), (n, k, M))}
+            for name, (kern, plain, lib, ref, (r, c, d)) in products.items():
+                tag = "%s %s M%d N%d K%d" % (model, name, r, c, d)
+                got, again, want = kern(), kern(), ref()
+                torch.cuda.synchronize()
+                err = (got.double() - want).abs().max().item()
+                plain_err = (plain().double() - want).abs().max().item()
+                if not err <= 2.0 * plain_err:
+                    fail("gemm 3d %s: error %.3g against float64, more than "
+                         "2x the plain version's %.3g" % (tag, err,
+                                                          plain_err))
+                if not torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32)):
+                    fail("gemm 3d %s: a second call gives other bits" % tag)
+                del got, again, want
+                # as scoring calls it: eager, under inference_mode
+                with torch.inference_mode():
+                    kernel_ms, plain_ms, library_ms = (
+                        device_ms(f)[0] for f in (kern, plain, lib))
+                    kernel_host, plain_host, library_host = (
+                        host_ms(f) for f in (kern, plain, lib))
+                ops = 2.0 * r * c * d
+                nbytes = 4.0 * (r * d + c * d + r * c)
+                bound_ms = max(ops / PEAK_OPS["float32"],
+                               nbytes / PEAK_BYTES) * 1e3
+                splits = LIN.k_splits(r, c, d)[0]
+                out[tag] = {"max_abs_err": err, "plain_max_abs_err": plain_err,
+                            "ms": kernel_ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms, "bound_ms": bound_ms,
+                            "bound_by": "operations" if ops / PEAK_OPS[
+                                "float32"] >= nbytes / PEAK_BYTES
+                            else "bytes", "splits": splits,
+                            "host_ms": kernel_host,
+                            "plain_host_ms": plain_host,
+                            "library_host_ms": library_host}
+                for key, v in (("kernel_ms", kernel_ms),
+                               ("plain_ms", plain_ms),
+                               ("library_ms", library_ms),
+                               ("bound_ms", bound_ms)):
+                    sums[key] += v
+                if name == "forward":
+                    sums["forward_host_ms"] += kernel_host
+                    sums["forward_plain_host_ms"] += plain_host
+                    if kernel_host > plain_host:
+                        costlier.append("%s (%.4f against %.4f)" % (
+                            tag, kernel_host, plain_host))
+                log("gemm 3d %s: error %.3g (plain %.3g, ratio %.2f), bit "
+                    "for bit twice; kernel %.4f ms (%.1f TFLOP/s, %.1f %% of "
+                    "the bound %.4f ms; %d split%s), plain %.4f ms, library "
+                    "%.4f ms (%.2fx the kernel); host ms a call: kernel "
+                    "%.4f, plain %.4f, library %.4f" % (
+                        tag, err, plain_err, err / plain_err, kernel_ms,
+                        ops / kernel_ms / 1e9, 100 * bound_ms / kernel_ms,
+                        bound_ms, splits, "" if splits == 1 else "s",
+                        plain_ms, library_ms, library_ms / kernel_ms,
+                        kernel_host, plain_host, library_host))
+            del x, w, b, dy
+    sums["library_over_kernel"] = sums["library_ms"] / sums["kernel_ms"]
+    sums["share_of_bound"] = sums["bound_ms"] / sums["kernel_ms"]
+    log("gemm 3d: the six shapes' three products, kernel %.3f ms, plain %.3f "
+        "ms, library %.3f ms (%.2fx the kernel), bound %.3f ms (%.1f %% of "
+        "the kernel's time); launches %s" % (
+            sums["kernel_ms"], sums["plain_ms"], sums["library_ms"],
+            sums["library_over_kernel"], sums["bound_ms"],
+            100 * sums["share_of_bound"], json.dumps(LIN.LAUNCHES)))
+    log("gemm 3d: host ms of the six forwards under inference_mode, kernel "
+        "%.4f, plain %.4f; the kernel's forward costs the host more than "
+        "the plain version at %s" % (
+            sums["forward_host_ms"], sums["forward_plain_host_ms"],
+            ", ".join(costlier) or "no shape"))
+    torch.cuda.empty_cache()
+    log("GEMM_TF32X3 " + json.dumps({"shapes": out, "sums": sums}))
+    return {"shapes": out, "sums": sums}
+
+
 def graph_gate_phase(torch, synth: dict) -> dict:
     """Phase 3c (see the module's notes); returns each mode's numbers."""
     from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
@@ -1140,7 +1289,10 @@ def graph_gate_phase(torch, synth: dict) -> dict:
             for n, v in snap[slot].items():
                 state.opt_state[slot][n].copy_(v)
 
+    from meme_challenge_tpu_torch.ops import linear as LIN
+
     out = {}
+    gemm_mark = LIN.LAUNCHES["forward"]
     for fuse in (False, True):
         tag = "fused accum" if fuse else "scan accum"
         res = {}
@@ -1212,6 +1364,8 @@ def graph_gate_phase(torch, synth: dict) -> dict:
         del res, eager, graph, state, outs, eager_outs, ref, after
         run.step = None
         torch.cuda.empty_cache()
+    if LIN.LAUNCHES["forward"] == gemm_mark:
+        fail("graph 3c: the fp32 steps launched no 3xTF32 GEMM")
     log("STEP_GRAPH " + json.dumps(out))
     return out
 
@@ -1260,9 +1414,35 @@ def forward_breakdown(torch, model, batch, dtype: str) -> None:
 
 
 def reset_launches(A) -> None:
-    for counts in (A.LAUNCHES, A.ROUTE_LAUNCHES):
+    from meme_challenge_tpu_torch.ops import linear as LIN
+
+    for counts in (A.LAUNCHES, A.ROUTE_LAUNCHES, LIN.LAUNCHES):
         for key in counts:
             counts[key] = 0
+
+
+# the 3xTF32 GEMM's launches (ops/linear.py: LAUNCHES) by product in the
+# main-path CLI runs whose attention launches the kernels record sums, each
+# counted since that run's reset_launches, by run
+GEMM_MAIN_PATH = {}
+
+
+def count_gemm_launches(tag: str, dtype=None) -> dict:
+    """The GEMM's launches since reset_launches, kept in GEMM_MAIN_PATH
+    under ``tag``; a float32 run on the card launched forwards, a bfloat16
+    run none (its products stay on F.linear)."""
+    from meme_challenge_tpu_torch.ops import linear as LIN
+
+    counts = dict(LIN.LAUNCHES)
+    if (dtype == "float32" and not counts["forward"]) or (
+            dtype == "bfloat16" and any(counts.values())):
+        fail("%s: 3xTF32 GEMM launches %s in a %s run" % (tag, counts,
+                                                          dtype))
+    log("%s: 3xTF32 GEMM launches %s" % (tag, json.dumps(counts)))
+    previous = GEMM_MAIN_PATH.get(tag, {})
+    GEMM_MAIN_PATH[tag] = {k: n + previous.get(k, 0)
+                           for k, n in counts.items()}
+    return counts
 
 
 def main_path_route(dtype: str) -> str:
@@ -1365,6 +1545,7 @@ def serve_cli_run(torch, run_dir: str, ckpt: str, synth: dict, passlog, A,
     wall = time.time() - t0
     counts = dict(A.LAUNCHES)
     by_route = check_route_counts(A, tag, dtype, (name,))
+    count_gemm_launches(tag, dtype)
     expected = layers * n_batches
     others = sum(v for k, v in counts.items() if k != name)
     memes = sum(n for n, _ in passlog.passes)
@@ -1507,6 +1688,7 @@ def finetune_cli_run(torch, work: str, synth: dict, passlog, A, cfg,
     counts = dict(A.LAUNCHES)
     bwd = name + "_bwd"
     by_route = check_route_counts(A, tag, dtype, (name, bwd))
+    count_gemm_launches(tag, dtype)
     # every micro-batch of an epoch is stepped, the short last group
     # padded to TRAIN_ACCUM; --fuse_accum runs one forward per group
     groups = sum(_ceil(_ceil(n, batch_size), TRAIN_ACCUM)
@@ -1786,6 +1968,7 @@ def crossval_phase(torch, work: str, synth: dict, passlog) -> dict:
     t_end = time.time()
     counts = dict(A.LAUNCHES)
     by_route = check_route_counts(A, "crossval", dtype, (name, bwd))
+    count_gemm_launches("crossval", dtype)
 
     cv_dir = crossval_dir(synth["root"], dev_size, True)
     n_splits = len([f for f in os.listdir(cv_dir) if f.startswith("train_")])
@@ -2282,6 +2465,7 @@ def fold_cli_phase(torch, work: str, synth: dict, passlog,
     wall = time.time() - t0
     counts = dict(A.LAUNCHES)
     by_route = check_route_counts(A, "fold-parallel", dtype, (name, bwd))
+    count_gemm_launches("fold-parallel")
     # the fold-stacked optimizer keeps the _foreach_* chain
     check_adam_launches("fold-parallel", mark, fused=False)
     n_folds = len(results["val_metrics"])
@@ -2774,6 +2958,7 @@ def pretrain_cli_phase(torch, work: str, synth: dict, passlog, A) -> tuple:
         counts = dict(A.LAUNCHES)
         launches[(name, dtype)], launches[(bwd, dtype)] = (counts[name],
                                                            counts[bwd])
+        count_gemm_launches("pretrain " + tag, dtype)
         micro = steps * (1 if "--fuse_accum" in flags else TRAIN_ACCUM)
         want = {name: layers * micro, bwd: layers * micro}
         rates = passlog.pretrain_rates[-1] if passlog.pretrain_rates else {}
@@ -2898,6 +3083,7 @@ def pretrain_handoff_phase(torch, work: str, synth: dict, passlog, A,
     wall = time.time() - t0
     check_route_counts(A, "pretrain handoff", "float32",
                        ("fused_attention", "fused_attention_bwd"))
+    count_gemm_launches("pretrain handoff", "float32")
     check_adam_launches("pretrain handoff", mark, sum(
         _ceil(_ceil(n, 16), TRAIN_ACCUM) for n, _ in passlog.epochs),
         uniter_leaves(UniterConfig.from_json_file(
@@ -3241,6 +3427,7 @@ def text_cli_phase(torch, work: str, synth: dict, passlog, A) -> dict:
         wall = time.time() - t0
         counts = dict(A.LAUNCHES)
         check_adam_launches(tag, mark)
+        count_gemm_launches(tag)
         log(on_card("%s: CLI %.1f s; train %s memes/s by epoch; fused-"
                     "attention launches %s" % (
                         tag, wall, ["%.1f" % (n / s) for n, s in
@@ -3653,6 +3840,7 @@ def extract_cli_phase(torch, work: str, cfg, state, images, synth: dict,
     layers = UniterConfig().num_hidden_layers
     by_route = check_route_counts(A, "extraction UNITER forward", "float32",
                                   ("fused_attention",))
+    count_gemm_launches("extraction UNITER forward", "float32")
     n_boxes = [int(v) for v in batch["img_mask"].sum(1)]
     log(on_card("extraction 12b: converted features of %d images (%s "
                 "boxes) through load_img_feature → MemeDataset → UNITER-base "
@@ -4980,7 +5168,7 @@ def main(argv) -> None:
         {k: round(v, 1) for k, v in secs.items()})))
     for name in cuda_build.LIBRARIES:
         for line in cuda_build.build_log(name).splitlines():
-            entry = re.search(r"entry function '\S*?((?:attn|adam)_\w+?"
+            entry = re.search(r"entry function '\S*?((?:attn|adam|gemm)_\w+?"
                               r"kernel)(\w*)'", line)
             if entry:  # the kernel and its mangled template arguments
                 log("ptxas %s: %s<%s>" % (name, entry.group(1),
@@ -5024,8 +5212,16 @@ def main(argv) -> None:
             timed("train step graph", graph_gate_phase, torch,
                   make_dataset(work))
         return
+    if "--gemm-only" in argv:
+        timed("gemm", gemm_phase, torch)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
+            timed("train step graph", graph_gate_phase, torch,
+                  make_dataset(work))
+        return
     kernels = timed("kernels", kernel_phase, torch)
     adam = timed("fused adam", adam_phase, torch)
+    gemm = timed("gemm", gemm_phase, torch)
     if "--kernels-only" in argv:
         return
     watch_optimizer_steps()
@@ -5149,6 +5345,28 @@ def main(argv) -> None:
         "library_ms": None, "library_none": ADAM_NO_LIBRARY,
         "uniter_large": {k: adam["uniter-large"][k] for k in (
             "kernel_ms", "chain_ms", "bound_ms", "leaves", "params")}})
+    # the 3xTF32 GEMM: launches by product of the CLI runs the attention
+    # entries count (count_gemm_launches; a replayed step's GEMMs count at
+    # each replay, its capture's not), times from phase 3d at UNITER-base's
+    # (N, K) = (768, 768) forward, the six shapes' sums beside them
+    gemm_launches = {}
+    for tag, counts in GEMM_MAIN_PATH.items():
+        log("launches gemm_tf32x3_kernel[float32]: %s %s"
+            % (tag, json.dumps(counts)))
+        for k, n in counts.items():
+            gemm_launches[k] = gemm_launches.get(k, 0) + n
+    log("launches gemm_tf32x3_kernel[float32]: main-path CLI runs %s"
+        % json.dumps(gemm_launches))
+    main_gemm = gemm["shapes"]["uniter-base forward M%d N768 K768"
+                               % GEMM_ROWS]
+    entries.append({
+        "name": "gemm_tf32x3_kernel[float32]", "route": "cuda",
+        "body": "3xTF32 wgmma", "source": SOURCE["linear_tf32x3"],
+        "replaces": None, "launches": gemm_launches,
+        "max_abs_err": main_gemm["max_abs_err"], "ms": main_gemm["ms"],
+        "plain_ms": main_gemm["plain_ms"], "bound_ms": main_gemm["bound_ms"],
+        "bound_by": main_gemm["bound_by"],
+        "library_ms": main_gemm["library_ms"], "six_shapes": gemm["sums"]})
     # the card again, near the end: long logs are often read from the tail
     log("card: " + card)
     log(json.dumps({"kernels": entries}))

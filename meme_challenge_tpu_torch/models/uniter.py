@@ -16,7 +16,8 @@ what ``meme_uniter_params_to_torch`` writes (the ``uniter_model.`` trunk, the
   kernel (``ops/attention.py``) when ``use_pallas_attention``, bf16 score
   storage with fp32 softmax math when ``attention_score_dtype`` is
   ``"bfloat16"``, and the plain fp32 path. The QKV, output and FFN products
-  stay plain torch, as the JAX package left them to XLA.
+  go through ``ops/linear.py``: float32 on a card takes its 3×TF32 kernel,
+  everything else ``F.linear`` and the bias add.
 - Training (``deterministic=False``) applies dropout where the JAX package
   does: flax-style Bernoulli dropout after the text and image embeddings,
   and the encoder's integer-threshold dropout (``keep iff bits >= rate·2³²``,
@@ -76,15 +77,17 @@ from meme_challenge_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_blocked,
 )
+from meme_challenge_tpu_torch.ops.linear import LINEAR_OP, linear
 
 NEG_INF = -10000.0  # additive mask value, reference model/model.py:345
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# the matrix products whose outputs remat_policy "dots" keeps
+# the matrix products whose outputs remat_policy "dots" keeps (LINEAR_OP:
+# the encoder's fp32 products on a card, ops/linear.py)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
          torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
-         torch.ops.aten.matmul.default)
+         torch.ops.aten.matmul.default, LINEAR_OP)
 
 # one torch.Generator, or one per fold of a FoldStack (a fold-stacked
 # tensor's leading axis is the fold axis)
@@ -258,8 +261,9 @@ class LayerNorm(nn.Module):
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
             ) -> torch.Tensor:
     """``x @ W.astype(dtype) + b.astype(dtype)``: product, then bias, each
-    rounded to ``dtype`` as in the JAX encoder."""
-    return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
+    rounded to ``dtype`` as in the JAX encoder (``ops/linear.py: linear``:
+    float32 on a card in one 3×TF32 kernel, the bias in its epilogue)."""
+    return linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class TextEmbeddings(nn.Module):

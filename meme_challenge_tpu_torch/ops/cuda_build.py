@@ -31,6 +31,7 @@ LIBRARIES: Dict[str, tuple] = {
     "fused_attention": ("fused_attention.cu",),
     "fused_attention_bwd": ("fused_attention_bwd.cu",),
     "fused_adam": ("fused_adam.cu",),
+    "linear_tf32x3": ("linear_tf32x3.cu",),
 }
 
 # -split-compile 0: optimise a source's kernels in parallel on every core (a

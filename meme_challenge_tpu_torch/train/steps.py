@@ -244,29 +244,30 @@ def step_signature(batch: Dict[str, torch.Tensor], accum_steps: int,
 
 def _launch_counts() -> tuple:
     """The port's kernel launch counters (``fused_adam.ADAM_LAUNCHES``,
-    ``attention.LAUNCHES``, ``attention.ROUTE_LAUNCHES``) as they stand."""
-    from meme_challenge_tpu_torch.ops import attention, fused_adam
+    ``attention.LAUNCHES``, ``attention.ROUTE_LAUNCHES``,
+    ``linear.LAUNCHES``) as they stand."""
+    from meme_challenge_tpu_torch.ops import attention, fused_adam, linear
 
     return (fused_adam.ADAM_LAUNCHES, dict(attention.LAUNCHES),
-            dict(attention.ROUTE_LAUNCHES))
+            dict(attention.ROUTE_LAUNCHES), dict(linear.LAUNCHES))
 
 
 def _launches_since(before: tuple) -> tuple:
     """The launches counted since :func:`_launch_counts` gave ``before``."""
     after = _launch_counts()
-    return (after[0] - before[0],
-            {k: n - before[1][k] for k, n in after[1].items()},
-            {k: n - before[2][k] for k, n in after[2].items()})
+    return (after[0] - before[0],) + tuple(
+        {k: n - was[k] for k, n in now.items()}
+        for now, was in zip(after[1:], before[1:]))
 
 
 def _add_launches(counts: tuple, sign: int = 1) -> None:
     """Add ``counts`` (from :func:`_launches_since`) to the counters,
     ``sign`` times."""
-    from meme_challenge_tpu_torch.ops import attention, fused_adam
+    from meme_challenge_tpu_torch.ops import attention, fused_adam, linear
 
     fused_adam.ADAM_LAUNCHES += sign * counts[0]
-    for table, delta in ((attention.LAUNCHES, counts[1]),
-                         (attention.ROUTE_LAUNCHES, counts[2])):
+    for table, delta in zip((attention.LAUNCHES, attention.ROUTE_LAUNCHES,
+                             linear.LAUNCHES), counts[1:]):
         for k, n in delta.items():
             table[k] += sign * n
 

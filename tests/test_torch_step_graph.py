@@ -21,7 +21,7 @@ import torch.distributed as dist
 from meme_challenge_tpu_torch.core.config import UniterConfig
 from meme_challenge_tpu_torch.core.seeding import dropout_generator
 from meme_challenge_tpu_torch.models.uniter import FoldStack, MemeUniter
-from meme_challenge_tpu_torch.ops import attention, fused_adam
+from meme_challenge_tpu_torch.ops import attention, fused_adam, linear
 from meme_challenge_tpu_torch.train import losses as TL
 from meme_challenge_tpu_torch.train import steps
 from meme_challenge_tpu_torch.train.optim import Optimizer
@@ -290,8 +290,12 @@ def test_launch_counts_of_a_capture_come_off_and_back():
     fused_adam.ADAM_LAUNCHES += 2
     attention.LAUNCHES["fused_attention"] += 3
     attention.ROUTE_LAUNCHES[("fused_attention", "mma_tf32x3")] += 3
+    linear.LAUNCHES["forward"] += 5
+    linear.LAUNCHES["splitk_sum"] += 1
     delta = steps._launches_since(before)
     assert delta[0] == 2 and delta[1]["fused_attention"] == 3
+    assert delta[3] == {"forward": 5, "dgrad": 0, "wgrad": 0,
+                        "splitk_sum": 1}
     steps._add_launches(delta, -1)
     assert steps._launch_counts() == before
     steps._add_launches(delta)
@@ -341,8 +345,10 @@ def test_replayed_steps_equal_eager_steps(card, fuse_accum):
     torch.cuda.synchronize()
     end = steps._launch_counts()
     assert mid[0] - launches[0] == end[0] - mid[0] == 4
-    assert ({k: n - launches[1][k] for k, n in mid[1].items()}
-            == {k: end[1][k] - n for k, n in mid[1].items()})
+    for table in (1, 3):
+        assert ({k: n - launches[table][k] for k, n in mid[table].items()}
+                == {k: end[table][k] - n for k, n in mid[table].items()})
+    assert end[3]["forward"] > mid[3]["forward"]
     for a, b in zip(got, want):
         assert torch.equal(_bits(a), _bits(b))
     _assert_same_state(gs, es)
