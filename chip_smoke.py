@@ -2,10 +2,11 @@
 """Drive the PyTorch port (meme_challenge_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only        # the build and phases 3, 3b
+    python3 chip_smoke.py --kernels-only        # the build and phases 3-3e
     python3 chip_smoke.py --adam-only           # the build and phase 3b
     python3 chip_smoke.py --graph-only          # the build and phase 3c
     python3 chip_smoke.py --gemm-only           # the build and phases 3d, 3c
+    python3 chip_smoke.py --expert-only         # the build and phases 3e, 11d
     python3 chip_smoke.py --uniter-large-only   # the build and phase 15
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --det-determinism
 
@@ -83,6 +84,18 @@ Phases, each of which makes the script exit non-zero if it fails:
    calls while the card is busy). Prints the six shapes' sums and their
    ratio, the six forwards' host ms, and the shapes at which the kernel's
    forward costs the host more than the plain version's.
+3e. The experts' grouped 3×TF32 GEMM (``ops/expert_linear.py``,
+   ``csrc/linear_tf32x3.cu: expert_gemm_tf32x3_kernel``) at the cell
+   moonlight_objtext_ft_fp32's shapes: 6 144 tokens (rows for 6 picks
+   each), 8 held experts, 1 872 rows drawn multinomially over them with one
+   expert emptied, (N, K) = (2 816, 2 048) (gate and up) and (2 048,
+   1 408) (down); forward, dgrad and wgrad against float64, each within 2×
+   the plain per-expert fp32 products' error (TF32 off) while the same
+   products with TF32 on must fail that tolerance; the same bits on a
+   second call, the empty expert's weight gradient zero. Times by CUDA
+   events: the kernel and the plain per-expert products, beside the bound
+   (2·rows·N·K operations at 165 TFLOP/s, or the held experts' weights and
+   the rows' inputs and outputs once at 3.35 TB/s).
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
@@ -174,6 +187,12 @@ Phases, each of which makes the script exit non-zero if it fails:
    --device_resident_data (1 epoch) with exact launch counts on the dtype's
    tensor-core body; every run's checkpoint, CSVs, metrics JSON and train
    memes/s. The Oscar CLI runs' launches count in the kernels' record.
+   (d) ``train_object_text --model moonlight`` (Moonlight-16B-A3B, 8 of 64
+   experts held, published widths) for 1 epoch without checkpoints: its
+   step replays a CUDA graph, and the grouped kernel's launches (counted
+   at each replay, in the kernels' record) are 3 forwards, 2 dgrads and 2
+   wgrads an MoE layer and train micro-batch, and 2 forwards an MoE layer
+   and eval batch.
 12. Extraction: the bottom-up-attention detector at ``DetectorConfig()``
    (Caffe ResNet-101, 1601 classes, 401 attributes, shortest side 600,
    longest 1000), random weights from a seed with the decision layers
@@ -1213,6 +1232,197 @@ def gemm_phase(torch) -> dict:
     torch.cuda.empty_cache()
     log("GEMM_TF32X3 " + json.dumps({"shapes": out, "sums": sums}))
     return {"shapes": out, "sums": sums}
+
+
+# the cell moonlight_objtext_ft_fp32's grouped products: 32 memes of 192
+# padded tokens a step, rows for a token's 6 picks, 8 held experts, ≈ 2 500
+# valid tokens × 6 picks × 8/64 held ≈ 234 rows a held expert
+EXPERT_TOKENS = 32 * 192
+EXPERT_PICKS = 6
+EXPERT_GROUPS = 8
+EXPERT_ROWS = 1872
+EXPERT_WIDTHS = {"gate_up": (2816, 2048), "down": (2048, 1408)}
+
+
+def expert_gemm_phase(torch) -> dict:
+    """Phase 3e (see the module's notes); returns each product's numbers
+    and their sums."""
+    import numpy as np
+
+    from meme_challenge_tpu_torch.ops import expert_linear as E
+
+    rng = np.random.RandomState(23)
+    sizes = rng.multinomial(EXPERT_ROWS, [1.0 / EXPERT_GROUPS]
+                            * EXPERT_GROUPS)
+    sizes[5] = 0  # an expert no token picked
+    bounds = [0] + [int(v) for v in np.cumsum(sizes)]
+    end, G, T = bounds[-1], EXPERT_GROUPS, EXPERT_TOKENS
+    off = torch.tensor(bounds, dtype=torch.int32, device="cuda")
+    R = T * EXPERT_PICKS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out, sums = {}, {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    mark = dict(E.LAUNCHES)
+    for layer, (n, k) in EXPERT_WIDTHS.items():
+        x = torch.randn(R, k, device="cuda", generator=gen)
+        dy = torch.randn(R, n, device="cuda", generator=gen)
+        w = torch.randn(G, n, k, device="cuda", generator=gen) / math.sqrt(k)
+        spans = list(zip(bounds, bounds[1:]))
+
+        def rows(f, grouped):
+            """The products of the groups' rows, or ``[G, ...]`` of the
+            groups' weight gradients (``grouped``)."""
+            got = [f(g, a, b) for g, (a, b) in enumerate(spans)]
+            return torch.stack(got) if grouped else torch.cat(got)
+
+        products = {
+            "forward": (lambda: E.forward(x, w, off, T)[:end],
+                        lambda: [x[a:b] @ w[g].t()
+                                 for g, (a, b) in enumerate(spans)],
+                        lambda d: rows(lambda g, a, b: d(x[a:b])
+                                       @ d(w[g]).t(), False)),
+            "dgrad": (lambda: E.dgrad(dy, w, off, T)[:end],
+                      lambda: [dy[a:b] @ w[g]
+                               for g, (a, b) in enumerate(spans)],
+                      lambda d: rows(lambda g, a, b: d(dy[a:b]) @ d(w[g]),
+                                     False)),
+            "wgrad": (lambda: E.wgrad(dy, x, off),
+                      lambda: [dy[a:b].t() @ x[a:b]
+                               for g, (a, b) in enumerate(spans)],
+                      lambda d: rows(lambda g, a, b: d(dy[a:b]).t()
+                                     @ d(x[a:b]), True))}
+        for name, (kern, plain, ref) in products.items():
+            tag = "%s %s" % (layer, name)
+            got, again = kern(), kern()
+            want = ref(lambda t: t.double())
+            plain_out = ref(lambda t: t)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32_out = ref(lambda t: t)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.cuda.synchronize()
+            err, plain_err, tf32_err = (
+                (t.double() - want).abs().max().item()
+                for t in (got, plain_out, tf32_out))
+            if not err <= 2.0 * plain_err:
+                fail("expert gemm 3e %s: error %.3g against float64, more "
+                     "than 2x the plain products' %.3g" % (tag, err,
+                                                           plain_err))
+            if tf32_err <= 2.0 * plain_err:
+                fail("expert gemm 3e %s: TF32 products (error %.3g) pass "
+                     "the tolerance 2x %.3g: it cannot tell fp32 from TF32"
+                     % (tag, tf32_err, plain_err))
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                fail("expert gemm 3e %s: a second call gives other bits"
+                     % tag)
+            if name == "wgrad" and got[5].any():
+                fail("expert gemm 3e %s: the empty group's gradient is not "
+                     "zero" % tag)
+            del got, again, want, plain_out, tf32_out
+            kernel_ms = device_ms(kern)[0]
+            plain_ms = device_ms(plain)[0]
+            ops = 2.0 * end * n * k
+            nbytes = 4.0 * (G * n * k + end * (n + k))
+            bound_ms = max(ops / PEAK_OPS["float32"],
+                           nbytes / PEAK_BYTES) * 1e3
+            out[tag] = {"max_abs_err": err, "plain_max_abs_err": plain_err,
+                        "tf32_max_abs_err": tf32_err, "ms": kernel_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "operations" if ops / PEAK_OPS[
+                            "float32"] >= nbytes / PEAK_BYTES else "bytes"}
+            for key, v in (("kernel_ms", kernel_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound_ms)):
+                sums[key] += v
+            log("expert gemm 3e %s N%d K%d: error %.3g (plain %.3g, ratio "
+                "%.2f; TF32 %.3g, refused), bit for bit twice; kernel %.4f "
+                "ms (%.1f TFLOP/s, %.1f %% of the bound %.4f ms, %s), plain "
+                "per-expert products %.4f ms (%.2fx the kernel)" % (
+                    tag, n, k, err, plain_err, err / plain_err, tf32_err,
+                    kernel_ms, ops / kernel_ms / 1e9,
+                    100 * bound_ms / kernel_ms, bound_ms,
+                    out[tag]["bound_by"], plain_ms, plain_ms / kernel_ms))
+        del x, dy, w
+    sums["share_of_bound"] = sums["bound_ms"] / sums["kernel_ms"]
+    log("expert gemm 3e: rows by expert %s (%d of %d), kernel %.3f ms, "
+        "plain %.3f ms, bound %.3f ms (%.1f %% of the kernel's time); "
+        "launches %s" % (
+            [int(v) for v in sizes], end, R, sums["kernel_ms"],
+            sums["plain_ms"], sums["bound_ms"], 100 * sums["share_of_bound"],
+            json.dumps({k: E.LAUNCHES[k] - mark[k] for k in E.LAUNCHES})))
+    torch.cuda.empty_cache()
+    log("EXPERT_GEMM " + json.dumps({"products": out, "sums": sums}))
+    return {"products": out, "sums": sums,
+            "rows": [int(v) for v in sizes]}
+
+
+def expert_entry(expert: dict, launches: dict) -> dict:
+    """The grouped expert GEMM's line in the kernels' record: the launches
+    by product of phase 11d's CLI run, the times of phase 3e's gate and up
+    forward, and the six products' sums beside them."""
+    main = expert["products"]["gate_up forward"]
+    return {"name": "expert_gemm_tf32x3_kernel[float32]", "route": "cuda",
+            "body": "3xTF32 wgmma, grouped", "source": SOURCE["linear_tf32x3"],
+            "replaces": None, "launches": launches,
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "rows_by_expert": expert["rows"], "six_products": expert["sums"]}
+
+
+def moonlight_cli_phase(torch, work: str, synth: dict, passlog) -> dict:
+    """Phase 11d: ``train_object_text --model moonlight`` at the published
+    widths (8 experts held) on the synthetic dataset, 1 epoch of the CLI's
+    defaults (fp32, micro-batch 32) without checkpoints: the step
+    replays its CUDA graph and the grouped kernel launches a forward, a
+    recomputed forward, two dgrads and two wgrads an MoE layer and train
+    micro-batch (counted at each replay) and two forwards an MoE layer and
+    eval batch. Returns the run's launches by product."""
+    from meme_challenge_tpu_torch.models.moe_mla import MoeMlaConfig
+    from meme_challenge_tpu_torch.ops import expert_linear as E
+    from meme_challenge_tpu_torch.train import steps, train_object_text
+
+    from meme_challenge_tpu_torch.ops import attention as A
+
+    side = _text_side_files(work, synth)
+    run_dir = os.path.join(work, "ot_moonlight")
+    os.makedirs(run_dir)
+    passlog.clear()
+    reset_launches(A)
+    for key in E.LAUNCHES:
+        E.LAUNCHES[key] = 0
+    caps = steps.GRAPH_CAPTURES, steps.GRAPH_REPLAYS
+    t0 = time.time()
+    train_object_text.main(
+        _text_argv(synth, run_dir, 1)
+        + ["--model", "moonlight", "--object_file", side["objects"],
+           "--object_to_text_file", side["obj2text"],
+           "--obj_threshold_min", "0.3", "--obj_threshold_max", "0.7",
+           "--obj_swap_prob", "0.1", "--no_model_checkpoints"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(E.LAUNCHES)
+    c = MoeMlaConfig()
+    per = c.num_hidden_layers - c.first_k_dense_replace
+    graphs = (steps.GRAPH_CAPTURES - caps[0], steps.GRAPH_REPLAYS - caps[1])
+    log(on_card("moonlight object_text: CLI %.1f s; train %s memes/s by "
+                "epoch; graphs captured %d, replayed %d; grouped expert "
+                "GEMM launches %s" % (
+                    wall, ["%.1f" % (n / s) for n, s in passlog.epochs],
+                    graphs[0], graphs[1], json.dumps(counts))))
+    count_gemm_launches("moonlight object_text", "float32")
+    if not passlog.epochs:
+        fail("moonlight object_text: no training epoch")
+    if graphs[0] < 1 or graphs[1] < 1:
+        fail("moonlight object_text: the step did not replay a graph "
+             "(captures %d, replays %d)" % graphs)
+    micro = counts["dgrad"] // (2 * per)
+    evals = (counts["forward"] - 3 * per * micro) / (2 * per)
+    if not (micro >= 1 and counts["dgrad"] == counts["wgrad"]
+            == 2 * per * micro and evals == int(evals) and evals >= 0):
+        fail("moonlight object_text: grouped launches %s are not 3 + 2 + 2 "
+             "an MoE layer (%d) and micro-batch plus 2 forwards an eval "
+             "batch" % (json.dumps(counts), per))
+    log("moonlight object_text: %d train micro-batches and %d eval batches "
+        "by the grouped launches" % (micro, int(evals)))
+    return counts
 
 
 def graph_gate_phase(torch, synth: dict) -> dict:
@@ -5212,6 +5422,15 @@ def main(argv) -> None:
             timed("train step graph", graph_gate_phase, torch,
                   make_dataset(work))
         return
+    if "--expert-only" in argv:
+        expert = timed("expert gemm", expert_gemm_phase, torch)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
+            expert_launches = timed("moonlight CLI", moonlight_cli_phase,
+                                    torch, work, make_dataset(work),
+                                    PassLog())
+        log(json.dumps({"kernels": [expert_entry(expert, expert_launches)]}))
+        return
     if "--gemm-only" in argv:
         timed("gemm", gemm_phase, torch)
         with tempfile.TemporaryDirectory(
@@ -5222,6 +5441,7 @@ def main(argv) -> None:
     kernels = timed("kernels", kernel_phase, torch)
     adam = timed("fused adam", adam_phase, torch)
     gemm = timed("gemm", gemm_phase, torch)
+    expert = timed("expert gemm", expert_gemm_phase, torch)
     if "--kernels-only" in argv:
         return
     watch_optimizer_steps()
@@ -5259,6 +5479,8 @@ def main(argv) -> None:
         timed("text steps", text_step_phase, torch, synth, A)
         text_launches = timed("text/oscar CLIs", text_cli_phase, torch,
                               work, synth, passlog, A)
+        expert_launches = timed("moonlight CLI", moonlight_cli_phase, torch,
+                                work, synth, passlog)
         det_cfg, det_state, det_images = detector_setup(torch)
         timed("extraction card vs CPU", extract_check_phase, torch, det_cfg,
               det_state, det_images)
@@ -5367,6 +5589,9 @@ def main(argv) -> None:
         "plain_ms": main_gemm["plain_ms"], "bound_ms": main_gemm["bound_ms"],
         "bound_by": main_gemm["bound_by"],
         "library_ms": main_gemm["library_ms"], "six_shapes": gemm["sums"]})
+    # the grouped expert GEMM: launches by product of phase 11d's CLI run,
+    # times from phase 3e
+    entries.append(expert_entry(expert, expert_launches))
     # the card again, near the end: long logs are often read from the tail
     log("card: " + card)
     log(json.dumps({"kernels": entries}))

@@ -55,6 +55,11 @@ from meme_challenge_tpu_torch.models.uniter import (
     erf_gelu,
     init_weights,
 )
+from meme_challenge_tpu_torch.models.moe_mla import (
+    MoeMlaBackbone,
+    MoeMlaConfig,
+    init_moe_mla_weights,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +164,11 @@ MODEL_DICT: Dict[str, Dict[str, Any]] = {
                                   intermediate_size=1024,
                                   embedding_size=128, has_pooler=False),
         "pretrain": "google/electra-small-discriminator"},
+    # the port's own: a DeepSeek-V3 decoder (models/moe_mla.py) holding one
+    # chip's share (8 of 64 experts a layer) of an 8-way expert-parallel
+    # deployment; the JAX package has no such entry
+    "moonlight": {"config": MoeMlaConfig(),
+                  "pretrain": "moonshotai/Moonlight-16B-A3B"},
 }
 
 TEXT_INIT_RANGE = 0.02  # the JAX backbone's _init(0.02)
@@ -295,12 +305,18 @@ def build_text_model(name: str, num_classes: int = 1, dropout: float = 0.5,
         raise ValueError("Given model is not known. Please choose between: "
                          "%s" % list(MODEL_DICT.keys()))
     cfg = MODEL_DICT[name]["config"]
-    if compute_bf16:
-        cfg = dataclasses.replace(cfg, dtype="bfloat16",
-                                  attention_score_dtype="bfloat16",
-                                  dropout_bits_dtype="uint8")
+    if isinstance(cfg, MoeMlaConfig):
+        if compute_bf16:
+            raise ValueError("%s runs in float32 only" % name)
+        backbone = MoeMlaBackbone(cfg)
+    else:
+        if compute_bf16:
+            cfg = dataclasses.replace(cfg, dtype="bfloat16",
+                                      attention_score_dtype="bfloat16",
+                                      dropout_bits_dtype="uint8")
+        backbone = TextBackbone(cfg)
     return TransformerClassificationHead(
-        TextBackbone(cfg), num_classes=num_classes, num_layers=num_layers,
+        backbone, num_classes=num_classes, num_layers=num_layers,
         hidden_dim=hidden_dim, dropout=dropout, act="gelu",
         use_pool_output=True)
 
@@ -310,8 +326,12 @@ def init_text_weights(model: TransformerClassificationHead,
     """JAX's initializers: normal(0.02) for every backbone matrix and table,
     zeros for biases, ones for LayerNorm scales; the head's Dense kernels
     flax's lecun-normal (a normal truncated at two deviations, scaled to
-    variance 1 / fan_in)."""
+    variance 1 / fan_in). A ``MoeMlaBackbone`` takes its own initializers
+    (``init_moe_mla_weights``: RMSNorm scales one, the routers' fixed
+    correction biases)."""
     init_weights(model, generator, TEXT_INIT_RANGE)
+    if isinstance(model.backbone, MoeMlaBackbone):
+        init_moe_mla_weights(model.backbone, generator)
     heads = [m for n, m in model.named_children()
              if n.startswith("head_") and isinstance(m, nn.Linear)]
     with torch.no_grad():

@@ -52,6 +52,15 @@
 // writing its partial to a workspace, and a second kernel sums the partials
 // in a fixed order (then adds the bias): no atomics, so a result repeats bit
 // for bit from run to run.
+//
+// The experts of an MoE layer (ops/expert_linear.py) take the same tile
+// (gemm_tile) in a second kernel, expert_gemm_tf32x3_kernel: one grid slice
+// an expert, whose rows (forward, dgrad) or k range (wgrad) are the
+// expert's group of the row-sorted operands, its bounds read on the device
+// from an offsets array. A group's size is data: the host never reads it,
+// so a captured train step replays without a sync. The grid's row extent
+// is the bound of a group's rows; a block past its group's end exits at
+// once. No split-K: an expert's wgrad runs over its own rows only.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -274,11 +283,16 @@ __device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo, const float
   }
 }
 
+// One block's 128 × 128 tile at (m0, n0) of C[M][N] = Σ_k A(m, k)·B(n, k)
+// (+ bias[n]) over the nk stages of 32 k from stage kt0, written to `out`
+// (row stride N). The body of both kernels below.
 template <bool A_K, bool B_K>
-__global__ void __launch_bounds__(kThreads, 1)
-gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   const float* __restrict__ bias, float* __restrict__ C, int M, int N,
-                   int K, int lda, int ldb, int kt_per_split) {
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          const float* __restrict__ bias,
+                                          float* __restrict__ out, int M, int N, int K,
+                                          int lda, int ldb, int m0, int n0, int kt0,
+                                          int nk) {
   using L = ALayout<A_K>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (mma::smem_addr(smem_raw) & 1023)) & 1023);
@@ -286,9 +300,6 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
   float4* b_raw = reinterpret_cast<float4*>(a_ring + kRing * L::kFloats);
   uint64_t* full = reinterpret_cast<uint64_t*>(b_raw + kRing * (kBRaw / 16));
   uint64_t* empty = full + kStages;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int kt0 = blockIdx.z * kt_per_split;
-  const int nk = max(0, min((K + kBK - 1) / kBK - kt0, kt_per_split));
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 128);              // one a producer thread
@@ -378,8 +389,7 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int e = 0; e < 64; ++e) d[e] = __fadd_rn(d[e], part[e]);
   }
 
-  // epilogue: split partials go to slice blockIdx.z of the workspace
-  float* out = C + (size_t)blockIdx.z * M * N;
+  // epilogue
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = n0 + 8 * j + 2 * t;
@@ -394,6 +404,51 @@ gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
       if (bias != nullptr) { o.x += b0; o.y += b1; }
       *reinterpret_cast<float2*>(out + (size_t)row * N + col) = o;
     }
+  }
+}
+
+template <bool A_K, bool B_K>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   const float* __restrict__ bias, float* __restrict__ C, int M, int N,
+                   int K, int lda, int ldb, int kt_per_split) {
+  const int kt0 = blockIdx.z * kt_per_split;
+  const int nk = max(0, min((K + kBK - 1) / kBK - kt0, kt_per_split));
+  // split partials go to slice blockIdx.z of the workspace
+  gemm_tile<A_K, B_K>(A, B, bias, C + (size_t)blockIdx.z * M * N, M, N, K, lda, ldb,
+                      blockIdx.y * kBM, blockIdx.x * kBN, kt0, nk);
+}
+
+// The experts' products: one group of rows a grid slice z = the expert,
+// the group's bounds read from offsets[z], offsets[z + 1] on the device
+// (int32, ascending), so no host ever reads a group's size and a CUDA
+// graph captures the launch.
+//   ROWS (forward, dgrad): the group's rows of A and C, each group's B its
+//   own slab (b_stride floats apart): C[lo + m][N] over K. A block whose
+//   first row lies past the group's end exits at once; the grid's y extent
+//   is the bound of a group's rows.
+//   Else (wgrad): the group's rows are the k range of A and B (each read
+//   M- or N-major), C the group's own [M][N] slab. An empty group writes
+//   zeros.
+template <bool A_K, bool B_K, bool ROWS>
+__global__ void __launch_bounds__(kThreads, 1)
+expert_gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                          float* __restrict__ C, const int* __restrict__ offsets, int M,
+                          int N, int K, int lda, int ldb, long long b_stride) {
+  const int z = blockIdx.z;
+  const int lo = offsets[z], hi = offsets[z + 1];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  if (ROWS) {
+    const int rows = hi - lo;
+    if (m0 >= rows) return;
+    gemm_tile<A_K, B_K>(A + (size_t)lo * lda, B + (size_t)z * b_stride, nullptr,
+                        C + (size_t)lo * N, rows, N, K, lda, ldb, m0, n0, 0,
+                        (K + kBK - 1) / kBK);
+  } else {
+    const int depth = hi - lo;
+    gemm_tile<A_K, B_K>(A + (size_t)lo * lda, B + (size_t)lo * ldb, nullptr,
+                        C + (size_t)z * M * N, M, N, depth, lda, ldb, m0, n0, 0,
+                        (depth + kBK - 1) / kBK);
   }
 }
 
@@ -429,6 +484,25 @@ int launch(const float* A, const float* B, const float* bias, float* C, int M, i
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
   gemm_tf32x3_kernel<A_K, B_K><<<grid, kThreads, ALayout<A_K>::kSmem, stream>>>(
       A, B, bias, C, M, N, K, lda, ldb, kt_per_split);
+  return (int)cudaGetLastError();
+}
+
+template <bool A_K, bool B_K, bool ROWS>
+int launch_expert(const float* A, const float* B, float* C, const int* offsets, int groups,
+                  int grid_rows, int M, int N, int K, int lda, int ldb, long long b_stride,
+                  cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        expert_gemm_tf32x3_kernel<A_K, B_K, ROWS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ALayout<A_K>::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (grid_rows + kBM - 1) / kBM, groups);
+  expert_gemm_tf32x3_kernel<A_K, B_K, ROWS>
+      <<<grid, kThreads, ALayout<A_K>::kSmem, stream>>>(A, B, C, offsets, M, N, K, lda, ldb,
+                                                        b_stride);
   return (int)cudaGetLastError();
 }
 
@@ -473,6 +547,37 @@ int gemm_tf32x3(int a_kmajor, int b_kmajor, const void* A, const void* B, const 
       static_cast<const float4*>(work), static_cast<const float4*>(bias),
       static_cast<float4*>(C), n4, N / 4, splits);
   return (int)cudaGetLastError();
+}
+
+// The experts' products over `groups` groups of rows, offsets[groups + 1]
+// (int32 on the device) their bounds in the row-sorted operands; every
+// operand float32, contiguous, 16-byte aligned, every width a multiple of 4.
+//   product 0, forward: Y[r][N] = X[r][K]·W[g]ᵀ, W [groups][N][K];
+//   product 1, dgrad:   DX[r][K] = DY[r][N]·W[g], W [groups][N][K];
+//   product 2, wgrad:   DW[g][N][K] = Σ_r DY[r][N]ᵀ·X[r][K] over g's rows.
+// `rows_bound` bounds a group's rows (forward, dgrad: the grid's row
+// extent; blocks past a group's end exit). Returns cudaGetLastError().
+int expert_gemm_tf32x3(int product, const void* X, const void* W, void* Y,
+                       const void* offsets, int groups, int rows_bound, int N, int K,
+                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(X);
+  const float* w = static_cast<const float*>(W);
+  float* y = static_cast<float*>(Y);
+  const int* off = static_cast<const int*>(offsets);
+  const long long slab = (long long)N * K;
+  switch (product) {
+    case 0:  // A = X (K-major), B = W[g] (K-major): rows × N over K
+      return launch_expert<true, true, true>(x, w, y, off, groups, rows_bound, 0, N, K, K, K,
+                                             slab, s);
+    case 1:  // A = DY (K-major over N), B = W[g] read N-major: rows × K over N
+      return launch_expert<true, false, true>(x, w, y, off, groups, rows_bound, 0, K, N, N, K,
+                                              slab, s);
+    case 2:  // A = DY read M-major, B = X read M-major: N × K over g's rows
+      return launch_expert<false, false, false>(x, w, y, off, groups, N, N, K, 0, N, K, 0, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -77,20 +77,23 @@ def linear_route(device_type: str, dtype: torch.dtype, in_features: int,
 
 
 def linear_plain(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
+                 bias: Optional[torch.Tensor]) -> torch.Tensor:
     """``x·Wᵀ + b``: the product, then the bias, each rounded to x's
-    dtype (JAX's ``Dense``)."""
-    return F.linear(x, weight) + bias
+    dtype (JAX's ``Dense``); the product alone where ``bias`` is None."""
+    y = F.linear(x, weight)
+    return y if bias is None else y + bias
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
-           bias: torch.Tensor) -> torch.Tensor:
-    """``x·Wᵀ + b`` over x's last axis, by :func:`linear_route`."""
+           bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x·Wᵀ + b`` over x's last axis (``x·Wᵀ`` where ``bias`` is None),
+    by :func:`linear_route`."""
     if linear_route(x.device.type, x.dtype, x.shape[-1],
                     weight.shape[0]) != "kernel":
         return linear_plain(x, weight, bias)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
+    if torch.is_grad_enabled() and (
+            x.requires_grad or weight.requires_grad
+            or (bias is not None and bias.requires_grad)):
         return LINEAR_OP(x, weight, bias)
     return _forward_cuda(x, weight, bias)
 
@@ -190,17 +193,19 @@ def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _forward_cuda(x: torch.Tensor, weight: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
     n, k = weight.shape
     if k % 4 or n % 4:
         linear_route("cuda", x.dtype, k, n)  # raises
-    if x.shape[-1] != k or bias.shape != (n,):
+    if x.shape[-1] != k or (bias is not None and bias.shape != (n,)):
         raise ValueError("linear_tf32x3: x [..., %d], weight [%d, %d] and "
                          "bias [%d] do not match; got x %s, bias %s" % (
-                             k, n, k, n, tuple(x.shape), tuple(bias.shape)))
+                             k, n, k, n, tuple(x.shape), None if bias is None
+                             else tuple(bias.shape)))
     if not x.is_contiguous():
         x = x.contiguous()
-    _check("x, weight and bias", x, weight, bias)
+    _check("x, weight and bias", x, weight,
+           *(() if bias is None else (bias,)))
     m = x.numel() // k
     y = x.new_empty((*x.shape[:-1], n))
     if m:
@@ -244,9 +249,9 @@ def wgrad(dy2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 @torch.library.custom_op("meme::linear_tf32x3", mutates_args=())
 def linear_tf32x3(x: torch.Tensor, weight: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
-    """``x·Wᵀ + b``: off a card the plain version; on a card (registered
-    below) the 3×TF32 kernel."""
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x·Wᵀ + b`` (``x·Wᵀ`` where ``bias`` is None): off a card the plain
+    version; on a card (registered below) the 3×TF32 kernel."""
     return linear_plain(x, weight, bias)
 
 
@@ -261,7 +266,7 @@ def _save(ctx, inputs, output):
 @once_differentiable
 def _backward(ctx, dy):
     """dx and dW from :func:`dgrad` and :func:`wgrad`, db as dy's row
-    sum."""
+    sum (none without a bias)."""
     x, weight = ctx.saved_tensors
     n, k = weight.shape
     dy2 = _rows(dy, n)

@@ -71,13 +71,17 @@ _NO_DECAY_SUFFIXES = ("bias", "LayerNorm.weight", "img_layer_norm.weight",
 
 
 # the text models' head LayerNorms (flax ``nn.LayerNorm`` ``scale`` in JAX)
-_HEAD_LN = re.compile(r"(?:^|\.)head_ln_\d+\.weight$")
+# and the RMSNorm scales of the DeepSeek-V3 decoder (models/moe_mla.py)
+_HEAD_LN = re.compile(r"(?:^|\.)(?:head_ln_\d+|input_layernorm|"
+                      r"post_attention_layernorm|kv_a_layernorm|"
+                      r"backbone\.norm)\.weight$")
 
 
 def no_decay_mask(names) -> Dict[str, bool]:
     """True = apply weight decay. Every ``*bias``, every ``LayerNorm.weight``,
     the image and position LayerNorm weights, the pretraining heads' and the
-    text models' head LayerNorm weights are excluded (reference
+    text models' head LayerNorm weights and the decoder's RMSNorm scales
+    are excluded (reference
     optim_utils.py:16; the JAX package's ``*bias`` / ``*ln_scale`` /
     ``scale`` names);
     ``mask_embedding`` and every matrix and embedding table decay."""
@@ -85,7 +89,7 @@ def no_decay_mask(names) -> Dict[str, bool]:
             for n in names}
 
 
-_LAYER = re.compile(r"(?:^|\.)encoder\.layer\.(\d+)\.")
+_LAYER = re.compile(r"(?:^|\.)(?:encoder\.layer|layers)\.(\d+)\.")
 
 
 def layer_freeze_scales(names, num_layers_freeze: int) -> Dict[str, float]:

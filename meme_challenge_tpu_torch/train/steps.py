@@ -245,11 +245,17 @@ def step_signature(batch: Dict[str, torch.Tensor], accum_steps: int,
 def _launch_counts() -> tuple:
     """The port's kernel launch counters (``fused_adam.ADAM_LAUNCHES``,
     ``attention.LAUNCHES``, ``attention.ROUTE_LAUNCHES``,
-    ``linear.LAUNCHES``) as they stand."""
-    from meme_challenge_tpu_torch.ops import attention, fused_adam, linear
+    ``linear.LAUNCHES``, ``expert_linear.LAUNCHES``) as they stand."""
+    from meme_challenge_tpu_torch.ops import (
+        attention,
+        expert_linear,
+        fused_adam,
+        linear,
+    )
 
     return (fused_adam.ADAM_LAUNCHES, dict(attention.LAUNCHES),
-            dict(attention.ROUTE_LAUNCHES), dict(linear.LAUNCHES))
+            dict(attention.ROUTE_LAUNCHES), dict(linear.LAUNCHES),
+            dict(expert_linear.LAUNCHES))
 
 
 def _launches_since(before: tuple) -> tuple:
@@ -263,11 +269,17 @@ def _launches_since(before: tuple) -> tuple:
 def _add_launches(counts: tuple, sign: int = 1) -> None:
     """Add ``counts`` (from :func:`_launches_since`) to the counters,
     ``sign`` times."""
-    from meme_challenge_tpu_torch.ops import attention, fused_adam, linear
+    from meme_challenge_tpu_torch.ops import (
+        attention,
+        expert_linear,
+        fused_adam,
+        linear,
+    )
 
     fused_adam.ADAM_LAUNCHES += sign * counts[0]
     for table, delta in zip((attention.LAUNCHES, attention.ROUTE_LAUNCHES,
-                             linear.LAUNCHES), counts[1:]):
+                             linear.LAUNCHES, expert_linear.LAUNCHES),
+                            counts[1:]):
         for k, n in delta.items():
             table[k] += sign * n
 
@@ -345,6 +357,10 @@ class _StepGraphs:
         main.wait_stream(self.stream)
         if generator is not None:
             generator.set_state(gen.get_state())
+        # the capture allocates from the graph's own pool: hand the eager
+        # step's cached blocks back first, or a model whose activations
+        # fill half the card holds them twice
+        torch.cuda.empty_cache()
 
         graph = torch.cuda.CUDAGraph()
         if gen is not None:

@@ -172,6 +172,28 @@ def test_op_gradient_equals_linear_and_add_in_float64(lead, needs):
         torch.testing.assert_close(gt, wt, rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("needs", ["all", "input", "params"])
+def test_op_without_bias_equals_linear_in_float64(needs):
+    """A bias of None: the product alone, and its gradients those of
+    ``F.linear`` without a bias (none for the missing bias)."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 5, 12, generator=g, dtype=torch.float64)
+    w = torch.randn(8, 12, generator=g, dtype=torch.float64)
+    wants = {"all": (True, True), "input": (True, False),
+             "params": (False, True)}[needs]
+    grads = [t.requires_grad_() for t, r in zip((x, w), wants) if r]
+    dy = torch.randn(2, 5, 8, generator=g, dtype=torch.float64)
+    y = torch.ops.meme.linear_tf32x3(x, w, None)
+    got = torch.autograd.grad((y * dy).sum(), grads)
+    y_ref = F.linear(x, w)
+    want = torch.autograd.grad((y_ref * dy).sum(), grads)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-13)
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, rtol=0, atol=1e-12)
+    assert torch.equal(L.linear(x.detach(), w.detach(), None),
+                       F.linear(x.detach(), w.detach()))
+
+
 def _counted(monkeypatch):
     """Counts the calls of the op's plain bodies (``linear_plain``, and
     ``dgrad`` / ``wgrad`` off a card) through monkeypatched wrappers: off a
@@ -350,3 +372,12 @@ def test_the_op_under_autograd_on_the_card(card):
         assert torch.equal(x.grad, L.dgrad(dy2, w).view(x.shape))
         assert torch.equal(w.grad, L.wgrad(dy2, x.reshape(-1, 768)))
         assert torch.equal(b.grad, dy2.sum(0))
+    # without a bias: the same product bits as with a zero one, no db
+    zero = torch.zeros_like(b)
+    x.grad = w.grad = None
+    y0 = L.linear(x, w, None)
+    y0.backward(dy)
+    with torch.no_grad():
+        assert torch.equal(y0, L.linear(x, w, zero))
+        assert torch.equal(x.grad, L.dgrad(dy2, w).view(x.shape))
+        assert torch.equal(w.grad, L.wgrad(dy2, x.reshape(-1, 768)))

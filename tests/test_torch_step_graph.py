@@ -21,7 +21,12 @@ import torch.distributed as dist
 from meme_challenge_tpu_torch.core.config import UniterConfig
 from meme_challenge_tpu_torch.core.seeding import dropout_generator
 from meme_challenge_tpu_torch.models.uniter import FoldStack, MemeUniter
-from meme_challenge_tpu_torch.ops import attention, fused_adam, linear
+from meme_challenge_tpu_torch.ops import (
+    attention,
+    expert_linear,
+    fused_adam,
+    linear,
+)
 from meme_challenge_tpu_torch.train import losses as TL
 from meme_challenge_tpu_torch.train import steps
 from meme_challenge_tpu_torch.train.optim import Optimizer
@@ -292,10 +297,12 @@ def test_launch_counts_of_a_capture_come_off_and_back():
     attention.ROUTE_LAUNCHES[("fused_attention", "mma_tf32x3")] += 3
     linear.LAUNCHES["forward"] += 5
     linear.LAUNCHES["splitk_sum"] += 1
+    expert_linear.LAUNCHES["wgrad"] += 4
     delta = steps._launches_since(before)
     assert delta[0] == 2 and delta[1]["fused_attention"] == 3
     assert delta[3] == {"forward": 5, "dgrad": 0, "wgrad": 0,
                         "splitk_sum": 1}
+    assert delta[4] == {"forward": 0, "dgrad": 0, "wgrad": 4}
     steps._add_launches(delta, -1)
     assert steps._launch_counts() == before
     steps._add_launches(delta)

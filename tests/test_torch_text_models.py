@@ -135,9 +135,13 @@ def _j(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
+# the port's own entries, which the JAX package does not have
+PORT_ONLY = {"moonlight"}
+
+
 @pytest.mark.parametrize("name", sorted(JT.MODEL_DICT))
 def test_registry_matches_jax(name):
-    assert set(PT.MODEL_DICT) == set(JT.MODEL_DICT)
+    assert set(PT.MODEL_DICT) - PORT_ONLY == set(JT.MODEL_DICT)
     assert (dataclasses.asdict(PT.MODEL_DICT[name]["config"])
             == dataclasses.asdict(JT.MODEL_DICT[name]["config"]))
     assert PT.MODEL_DICT[name]["pretrain"] == JT.MODEL_DICT[name]["pretrain"]

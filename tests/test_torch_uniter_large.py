@@ -40,10 +40,15 @@ from meme_challenge_tpu.ops import attention as JA
 from meme_challenge_tpu.train.losses import bce_logits_loss as jax_bce_logits
 from meme_challenge_tpu_torch.core import config as PC
 from meme_challenge_tpu_torch.core.seeding import torch_generator
+from meme_challenge_tpu_torch.models import moe_mla as PMM
 from meme_challenge_tpu_torch.models import oscar as POS
 from meme_challenge_tpu_torch.models import text_models as PT
 from meme_challenge_tpu_torch.models import uniter as U
 from meme_challenge_tpu_torch.models.convert import meme_uniter_state_from_jax
+from meme_challenge_tpu_torch.models.moe_mla import (
+    MoeMlaBackbone,
+    MoeMlaConfig,
+)
 from meme_challenge_tpu_torch.ops import attention as PA
 from meme_challenge_tpu_torch.train.losses import bce_logits_loss
 from meme_challenge_tpu_torch.train.pretrain_init import init_pretrain_model
@@ -268,6 +273,16 @@ def _pretrain():
 
 def _text(name):
     def build():
+        if isinstance(PT.MODEL_DICT[name]["config"], MoeMlaConfig):
+            cfg = MoeMlaConfig(
+                vocab_size=64, hidden_size=32, intermediate_size=64,
+                moe_intermediate_size=16, num_hidden_layers=2,
+                num_attention_heads=4, kv_lora_rank=16, qk_nope_head_dim=8,
+                qk_rope_head_dim=4, v_head_dim=8, n_routed_experts=4,
+                num_experts_per_tok=2, n_shared_experts=1, experts_held=2)
+            model = PT.TransformerClassificationHead(MoeMlaBackbone(cfg))
+            PT.init_text_weights(model, torch_generator(0, "cpu"))
+            return model, _text_loss
         cfg = dataclasses.replace(
             PT.MODEL_DICT[name]["config"], vocab_size=64, hidden_size=32,
             num_hidden_layers=1, num_attention_heads=4, intermediate_size=64,
@@ -305,6 +320,7 @@ def _table_grads(build, monkeypatch, reference: bool):
             lookup = lambda weight, ids: embedding(ids.long(), weight)  # noqa
             m.setattr(U, "embedding_lookup", lookup)
             m.setattr(PT, "embedding_lookup", lookup)
+            m.setattr(PMM, "embedding_lookup", lookup)
         else:
             def refuse(*args, **kwargs):
                 raise AssertionError("F.embedding reached")
@@ -349,8 +365,8 @@ def test_no_gradient_path_reaches_f_embedding(name, monkeypatch):
     got = _table_grads(build, monkeypatch, reference=False)
     ref = _table_grads(build, monkeypatch, reference=True)
     assert set(got) == set(ref)
-    tables = [n for n in got if "embedding" in n and n.endswith(".weight")
-              and "img_embedding." not in n]
+    tables = [n for n in got if ("embedding" in n or "embed_tokens" in n)
+              and n.endswith(".weight") and "img_embedding." not in n]
     assert tables, sorted(got)
     for n in got:
         scale = max(float(ref[n].abs().max()), 1e-30)
@@ -361,4 +377,5 @@ def test_no_gradient_path_reaches_f_embedding(name, monkeypatch):
         assert float(got[w][1].abs().max()) > 0
         assert float(got[w][0].abs().max()) == 0
     keys = set(build()[0].state_dict())
-    assert any(k.endswith("word_embeddings.weight") for k in keys)
+    assert any(k.endswith(("word_embeddings.weight", "embed_tokens.weight"))
+               for k in keys)
