@@ -2,10 +2,11 @@
 """Drive the PyTorch port (meme_challenge_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only        # the build and phases 3-3e
+    python3 chip_smoke.py --kernels-only        # the build and phases 3-3f
     python3 chip_smoke.py --adam-only           # the build and phase 3b
     python3 chip_smoke.py --graph-only          # the build and phase 3c
-    python3 chip_smoke.py --gemm-only           # the build and phases 3d, 3c
+    python3 chip_smoke.py --gemm-only           # the build and phases 3d, 3f, 3g, 3c
+    python3 chip_smoke.py --list-only           # the build and phases 3f, 3g
     python3 chip_smoke.py --expert-only         # the build and phases 3e, 11d
     python3 chip_smoke.py --uniter-large-only   # the build and phase 15
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --det-determinism
@@ -96,6 +97,23 @@ Phases, each of which makes the script exit non-zero if it fails:
    events: the kernel and the plain per-expert products, beside the bound
    (2·rows·N·K operations at 165 TFLOP/s, or the held experts' weights and
    the rows' inputs and outputs once at 3.35 TB/s).
+3f. The 3×TF32 GEMM over a row list (``ops/linear.py: row_list``, the
+   encoder's valid tokens): 16 memes of the ``ft_fp32`` traffic's [60 |
+   100] slots (text log-normal with a median of 20 tokens over 4-60,
+   regions uniform over 10-100; ≈ 49 % valid), 3d's nine (shape, product)
+   pairs of UNITER-base and of UNITER-large: the listed rows within 2× the
+   plain products' error against float64, the forward's and dgrad's other
+   rows zero, the same bits on a second call, and the forward's listed rows
+   the no-list launch's bits where the count's plan is the no-list plan.
+   Times by CUDA events: the listed launch and the no-list launch, beside
+   the bound at the listed rows; each model's sums and their ratio (the
+   aim: ≤ 0.65). Then Moonlight-16B-A3B's dense products (no list) at its
+   cell's 6 144 rows, forward, dgrad and wgrad.
+3g. The row list's counter (``LISTED_ROWS``) over a short captured
+   fine-tune of full-width UNITER-base (16 × 2 memes a step, random inputs):
+   6 steps of ``ft_fp32``-traffic masks, then 2 all-valid: the rows the
+   counter adds are each mask's valid rows and its rows offered, exactly
+   (≈ 49 %, then 100 %), one capture and 7 replays.
 4. Inference phase: full-width UNITER-base inference through the port's CLI
    (``train_uniter.main`` with ``--max_epoch 0``) on a synthetic dataset,
    each kernel in float32 and bfloat16. Checks the CSVs and metrics JSON,
@@ -1232,6 +1250,232 @@ def gemm_phase(torch) -> dict:
     torch.cuda.empty_cache()
     log("GEMM_TF32X3 " + json.dumps({"shapes": out, "sums": sums}))
     return {"shapes": out, "sums": sums}
+
+
+# the ft_fp32 traffic's memes (portbench/traffic/ft_fp32.json): [60 text |
+# 100 region] slots, text log-normal with a median of 20 tokens (σ 0.5)
+# over 4-60, regions uniform over 10-100; ≈ 49 % of the slots valid
+def traffic_mask(torch, memes: int, seed: int):
+    """A ``[memes, 160]`` int64 key mask on the card."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    text = np.clip(np.rint(rng.lognormal(np.log(20), 0.5, memes)), 4, 60)
+    regions = rng.randint(10, 101, memes)
+    mask = np.zeros((memes, 160), np.int64)
+    for i in range(memes):
+        mask[i, :int(text[i])] = 1
+        mask[i, 60:60 + regions[i]] = 1
+    return torch.from_numpy(mask).cuda()
+
+
+# Moonlight-16B-A3B's dense products through the hand GEMM at the cell
+# moonlight_objtext_ft_fp32's 32 × 192 tokens, (N, K): they take no list
+MOONLIGHT_ROWS = 32 * 192
+MOONLIGHT_DENSE = {"q_proj": (3072, 2048), "kv_a_proj": (576, 2048),
+                   "kv_b_proj": (4096, 512), "o_proj": (2048, 2048),
+                   "shared gate": (2816, 2048), "shared down": (2048, 2816)}
+
+
+def gemm_list_phase(torch) -> dict:
+    """Phase 3f (see the module's notes); returns each pair's numbers, the
+    two models' sums and Moonlight's times."""
+    from meme_challenge_tpu_torch.models.uniter import NEG_INF
+    from meme_challenge_tpu_torch.ops import linear as LIN
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    M = GEMM_ROWS
+    mask = traffic_mask(torch, M // 160, 24).reshape(1, -1)
+    on = mask.reshape(-1).bool()
+    rows = LIN.row_list(((1.0 - mask.float()) * NEG_INF)[:, None, None, :])
+    count = int(rows[0])
+    if count != int(on.sum()):
+        fail("gemm 3f: the row list counts %d rows, the mask %d"
+             % (count, int(on.sum())))
+    out, sums = {}, {}
+    for model, (h, ffn) in GEMM_WIDTHS.items():
+        s = sums[model] = {"listed_ms": 0.0, "nolist_ms": 0.0,
+                           "bound_ms": 0.0}
+        for n, k in ((h, h), (ffn, h), (h, ffn)):
+            x = torch.randn(M, k, device="cuda", generator=gen)
+            w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+            b = torch.randn(n, device="cuda", generator=gen)
+            dy = torch.randn(M, n, device="cuda", generator=gen)
+            xs, dys = x[on], dy[on]
+            products = {
+                "forward": (lambda: LIN._forward_cuda(x, w, b, rows),
+                            lambda: LIN._forward_cuda(x, w, b),
+                            lambda: xs @ w.t() + b,
+                            lambda: xs.double() @ w.double().t()
+                            + b.double(), (count, n, k), (M, n, k)),
+                "dgrad": (lambda: LIN.dgrad(dy, w, rows),
+                          lambda: LIN.dgrad(dy, w), lambda: dys @ w,
+                          lambda: dys.double() @ w.double(), (count, k, n),
+                          (M, k, n)),
+                "wgrad": (lambda: LIN.wgrad(dy, x, rows),
+                          lambda: LIN.wgrad(dy, x), lambda: dys.t() @ xs,
+                          lambda: dys.double().t() @ xs.double(),
+                          (n, k, count), (n, k, M))}
+            for name, (listed, nolist, plain, ref, (r, c, d),
+                       whole) in products.items():
+                tag = "%s %s M%d N%d K%d" % (model, name, *whole)
+                got, again, full, want = listed(), listed(), nolist(), ref()
+                torch.cuda.synchronize()
+                kept = got if name == "wgrad" else got[on]
+                err = (kept.double() - want).abs().max().item()
+                plain_err = (plain().double() - want).abs().max().item()
+                if not err <= 2.0 * plain_err:
+                    fail("gemm 3f %s: the listed rows err by %.3g against "
+                         "float64, more than 2x the plain version's %.3g"
+                         % (tag, err, plain_err))
+                if name != "wgrad" and bool(got[~on].any()):
+                    fail("gemm 3f %s: a row outside the list is not zero"
+                         % tag)
+                if not torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32)):
+                    fail("gemm 3f %s: a second call gives other bits" % tag)
+                plan = LIN.list_plan(*whole, name != "wgrad")[0]
+                unit = LIN.BLOCK_K if name == "wgrad" else LIN.BLOCK_M
+                splits = plan[-(-count // unit)]
+                same = None
+                if name == "forward" and splits == LIN.k_splits(*whole):
+                    same = torch.equal(got[on].view(torch.int32),
+                                       full[on].view(torch.int32))
+                    if not same:
+                        fail("gemm 3f %s: the listed rows differ from the "
+                             "no-list launch's under the same plan" % tag)
+                del got, again, full, want, kept
+                with torch.inference_mode():
+                    listed_ms, nolist_ms = (device_ms(f)[0]
+                                            for f in (listed, nolist))
+                ops = 2.0 * r * c * d
+                nbytes = 4.0 * (r * d + c * d + r * c)
+                bound_ms = max(ops / PEAK_OPS["float32"],
+                               nbytes / PEAK_BYTES) * 1e3
+                out[tag] = {"listed_ms": listed_ms, "nolist_ms": nolist_ms,
+                            "bound_ms": bound_ms, "max_abs_err": err,
+                            "plain_max_abs_err": plain_err,
+                            "plan": list(splits),
+                            "nolist_plan": list(LIN.k_splits(*whole)),
+                            "bits_as_nolist": same}
+                s["listed_ms"] += listed_ms
+                s["nolist_ms"] += nolist_ms
+                s["bound_ms"] += bound_ms
+                log("gemm 3f %s over %d listed rows: error %.3g (plain "
+                    "%.3g), rows outside zero, bit for bit twice%s; listed "
+                    "%.4f ms (plan %s), no list %.4f ms (plan %s), %.2fx; "
+                    "bound at the listed rows %.4f ms (%.1f %%)" % (
+                        tag, count, err, plain_err,
+                        "" if same is None else ", the no-list bits",
+                        listed_ms, splits, nolist_ms, LIN.k_splits(*whole),
+                        listed_ms / nolist_ms, bound_ms,
+                        100 * bound_ms / listed_ms))
+            del x, w, b, dy, xs, dys
+        s["ratio"] = s["listed_ms"] / s["nolist_ms"]
+        log("gemm 3f %s: the nine pairs at %d of %d rows valid (%.2f %%): "
+            "listed %.3f ms, no list %.3f ms, ratio %.3f (%s the aim of "
+            "0.65), bound at the listed rows %.3f ms" % (
+                model, count, M, 100.0 * count / M, s["listed_ms"],
+                s["nolist_ms"], s["ratio"],
+                "within" if s["ratio"] <= 0.65 else "above", s["bound_ms"]))
+    moon = {}
+    for name, (n, k) in MOONLIGHT_DENSE.items():
+        x = torch.randn(MOONLIGHT_ROWS, k, device="cuda", generator=gen)
+        w = torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)
+        dy = torch.randn(MOONLIGHT_ROWS, n, device="cuda", generator=gen)
+        with torch.inference_mode():
+            moon[name] = [device_ms(f)[0] for f in (
+                lambda: LIN.linear(x, w, None), lambda: LIN.dgrad(dy, w),
+                lambda: LIN.wgrad(dy, x))]
+        log("gemm 3f moonlight %s M%d N%d K%d, no list: forward %.4f ms, "
+            "dgrad %.4f, wgrad %.4f" % (name, MOONLIGHT_ROWS, n, k,
+                                        *moon[name]))
+        del x, w, dy
+    torch.cuda.empty_cache()
+    result = {"count": count, "rows": M, "pairs": out, "sums": sums,
+              "moonlight_dense_ms": moon}
+    log("GEMM_LIST " + json.dumps(result))
+    return result
+
+
+def list_counter_phase(torch) -> dict:
+    """Phase 3g (see the module's notes): the counter's share over a short
+    captured fine-tune of full-width UNITER-base."""
+    from meme_challenge_tpu_torch.core.config import TrainConfig, UniterConfig
+    from meme_challenge_tpu_torch.core.seeding import (
+        dropout_generator,
+        torch_generator,
+    )
+    from meme_challenge_tpu_torch.models.uniter import init_meme_uniter
+    from meme_challenge_tpu_torch.ops import linear as LIN
+    from meme_challenge_tpu_torch.train import steps as S
+    from meme_challenge_tpu_torch.train.losses import make_loss_fn
+    from meme_challenge_tpu_torch.train.optim import Optimizer
+
+    c = TrainConfig()
+    model = init_meme_uniter(UniterConfig(use_pallas_attention=True), 1,
+                             "cuda", torch_generator(0, "cuda"))
+    opt = Optimizer("adam", 3e-5, lambda count: (count + 1) / 8,
+                    beta1=c.beta1, beta2=c.beta2,
+                    weight_decay=c.weight_decay,
+                    max_grad_norm=c.max_grad_norm, mu_dtype=c.adam_mu_dtype,
+                    nu_dtype=c.adam_nu_dtype)
+    state = S.create_train_state(model, opt)
+    step = S.make_train_step(model, make_loss_fn("bce_logits", 1.8), opt,
+                             accum_steps=TRAIN_ACCUM)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    A, B = TRAIN_ACCUM, 16
+
+    def batch(mask):
+        return {"input_ids": torch.randint(1, 28996, (A, B, 60),
+                                           device="cuda", generator=gen).int(),
+                "position_ids": torch.arange(60, dtype=torch.int32,
+                                             device="cuda")
+                .expand(A, B, 60).contiguous(),
+                "txt_mask": mask[..., :60].int(),
+                "img_feat": torch.randn(A, B, 100, 2048, device="cuda",
+                                        generator=gen).half(),
+                "img_pos_feat": torch.rand(A, B, 100, 7, device="cuda",
+                                           generator=gen),
+                "img_mask": mask[..., 60:].int(),
+                "labels": torch.randint(0, 2, (A, B), device="cuda",
+                                        generator=gen),
+                "sample_mask": torch.ones(A, B, dtype=torch.int32,
+                                          device="cuda")}
+
+    counter = LIN.listed_rows(torch.device("cuda"))
+    out = {}
+    marks = S.GRAPH_CAPTURES, S.GRAPH_REPLAYS
+    for tag, n_steps in (("traffic", 6), ("all_valid", 2)):
+        before = counter.clone()
+        valid = 0
+        for i in range(n_steps):
+            mask = (traffic_mask(torch, A * B, 250 + i) if tag == "traffic"
+                    else torch.ones(A * B, 160, dtype=torch.int64,
+                                    device="cuda")).view(A, B, 160)
+            valid += int(mask.sum())
+            state, _ = step(state, batch(mask),
+                            dropout_generator(43, state.step, "cuda"))
+        torch.cuda.synchronize()
+        computed, offered = (counter - before).tolist()
+        want = [valid, n_steps * A * B * 160]
+        if [computed, offered] != want:
+            fail("list 3g %s: the counter added %d of %d rows over %d "
+                 "steps, the masks hold %d of %d" % (
+                     tag, computed, offered, n_steps, *want))
+        out[tag] = {"computed": computed, "offered": offered,
+                    "share": computed / offered}
+        log("list 3g %s: %d steps of 16 x %d memes, the counter %d of %d "
+            "rows computed (%.2f %%)" % (tag, n_steps, A, computed, offered,
+                                         100.0 * computed / offered))
+    made = (S.GRAPH_CAPTURES - marks[0], S.GRAPH_REPLAYS - marks[1])
+    if made != (1, 7):
+        fail("list 3g: %d captures and %d replays in 8 steps of one shape"
+             % made)
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+    log("LIST_COUNTER " + json.dumps(out))
+    return out
 
 
 # the cell moonlight_objtext_ft_fp32's grouped products: 32 memes of 192
@@ -5422,6 +5666,10 @@ def main(argv) -> None:
             timed("train step graph", graph_gate_phase, torch,
                   make_dataset(work))
         return
+    if "--list-only" in argv:
+        timed("gemm list", gemm_list_phase, torch)
+        timed("list counter", list_counter_phase, torch)
+        return
     if "--expert-only" in argv:
         expert = timed("expert gemm", expert_gemm_phase, torch)
         with tempfile.TemporaryDirectory(
@@ -5433,6 +5681,8 @@ def main(argv) -> None:
         return
     if "--gemm-only" in argv:
         timed("gemm", gemm_phase, torch)
+        timed("gemm list", gemm_list_phase, torch)
+        timed("list counter", list_counter_phase, torch)
         with tempfile.TemporaryDirectory(
                 dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
             timed("train step graph", graph_gate_phase, torch,
@@ -5441,6 +5691,7 @@ def main(argv) -> None:
     kernels = timed("kernels", kernel_phase, torch)
     adam = timed("fused adam", adam_phase, torch)
     gemm = timed("gemm", gemm_phase, torch)
+    timed("gemm list", gemm_list_phase, torch)
     expert = timed("expert gemm", expert_gemm_phase, torch)
     if "--kernels-only" in argv:
         return
@@ -5450,6 +5701,7 @@ def main(argv) -> None:
             dir=os.path.join(ROOT, "build"), prefix="chip_smoke_") as work:
         synth = make_dataset(work)
         timed("train step graph", graph_gate_phase, torch, synth)
+        timed("list counter", list_counter_phase, torch)
         timed("inference", inference_phase, torch, work, synth, passlog)
         launches = timed("train", train_phase, torch, work, synth, passlog)
         cv_launches, cv_epochs = timed("crossval", crossval_phase, torch,

@@ -16,8 +16,10 @@ what ``meme_uniter_params_to_torch`` writes (the ``uniter_model.`` trunk, the
   kernel (``ops/attention.py``) when ``use_pallas_attention``, bf16 score
   storage with fp32 softmax math when ``attention_score_dtype`` is
   ``"bfloat16"``, and the plain fp32 path. The QKV, output and FFN products
-  go through ``ops/linear.py``: float32 on a card takes its 3×TF32 kernel,
-  everything else ``F.linear`` and the bias add.
+  go through ``ops/linear.py``: float32 on a card takes its 3×TF32 kernel
+  over the valid tokens' rows alone (a row list built once a forward from
+  the key mask; a padded row comes out zero), everything else
+  ``F.linear`` and the bias add.
 - Training (``deterministic=False``) applies dropout where the JAX package
   does: flax-style Bernoulli dropout after the text and image embeddings,
   and the encoder's integer-threshold dropout (``keep iff bits >= rate·2³²``,
@@ -77,7 +79,12 @@ from meme_challenge_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_blocked,
 )
-from meme_challenge_tpu_torch.ops.linear import LINEAR_OP, linear
+from meme_challenge_tpu_torch.ops.linear import (
+    LINEAR_OP,
+    linear,
+    linear_route,
+    row_list,
+)
 
 NEG_INF = -10000.0  # additive mask value, reference model/model.py:345
 
@@ -258,12 +265,13 @@ class LayerNorm(nn.Module):
         return _layer_norm(x, self.weight, self.bias, self.eps, out_dtype)
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
-            ) -> torch.Tensor:
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ W.astype(dtype) + b.astype(dtype)``: product, then bias, each
     rounded to ``dtype`` as in the JAX encoder (``ops/linear.py: linear``:
-    float32 on a card in one 3×TF32 kernel, the bias in its epilogue)."""
-    return linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    float32 on a card in one 3×TF32 kernel, the bias in its epilogue, over
+    the encoder's row list ``rows`` where it has one)."""
+    return linear(x, layer.weight.to(dtype), layer.bias.to(dtype), rows)
 
 
 class TextEmbeddings(nn.Module):
@@ -491,8 +499,8 @@ class StackedEncoder(nn.Module):
             [BertLayer(config) for _ in range(config.num_hidden_layers)])
 
     def _layer(self, lp: BertLayer, x: torch.Tensor, bias32: torch.Tensor,
-               attn_rate: float, gen: Optional[torch.Generator]
-               ) -> torch.Tensor:
+               attn_rate: float, gen: Optional[torch.Generator],
+               rows: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.config
         p_hid = cfg.hidden_dropout_prob
         bits8 = cfg.dropout_bits_dtype == "uint8"
@@ -500,27 +508,28 @@ class StackedEncoder(nn.Module):
         scale = 1.0 / math.sqrt(cfg.head_dim)
         act = ACT2FN[cfg.hidden_act]
         sa = lp.attention.self
-        q, k, v = (_split_heads(_linear(x, lin, dtype),
+        q, k, v = (_split_heads(_linear(x, lin, dtype, rows),
                                 cfg.num_attention_heads)
                    for lin in (sa.query, sa.key, sa.value))
         ctx = _merge_heads(_attention(cfg, q, k, v, bias32, scale, dtype,
                                       attn_rate, gen))
         ao = lp.attention.output
-        attn_out = threshold_dropout(_linear(ctx, ao.dense, dtype), p_hid,
-                                     gen, bits8)
+        attn_out = threshold_dropout(_linear(ctx, ao.dense, dtype, rows),
+                                     p_hid, gen, bits8)
         x = ao.LayerNorm(attn_out + x, dtype)
-        inter = act(_linear(x, lp.intermediate.dense, dtype))
+        inter = act(_linear(x, lp.intermediate.dense, dtype, rows))
         fo = lp.output
-        ffn_out = threshold_dropout(_linear(inter, fo.dense, dtype), p_hid,
-                                    gen, bits8)
+        ffn_out = threshold_dropout(_linear(inter, fo.dense, dtype, rows),
+                                    p_hid, gen, bits8)
         return fo.LayerNorm(ffn_out + x, dtype)
 
     def _remat_layer(self, lp: BertLayer, x: torch.Tensor,
                      bias32: torch.Tensor, attn_rate: float,
-                     gen: Optional[torch.Generator]) -> torch.Tensor:
+                     gen: Optional[torch.Generator],
+                     rows: Optional[torch.Tensor]) -> torch.Tensor:
         """The layer under ``torch.utils.checkpoint`` (:func:`_remat`)."""
         return _remat(self.config, lambda x: self._layer(
-            lp, x, bias32, attn_rate, gen), x, gen)
+            lp, x, bias32, attn_rate, gen, rows), x, gen)
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
                 deterministic: bool = True,
@@ -539,8 +548,14 @@ class StackedEncoder(nn.Module):
                  else self._layer)
         bias32 = attn_bias.float()
         x = hidden.to(compute_dtype(cfg))
+        # the rows the products compute on the fp32 kernel route: a padded
+        # token's row is read by nothing (its key's weight is exactly 0, the
+        # heads read valid positions), so the kernel skips it
+        rows = (row_list(bias32.reshape(x.shape[:-1]))
+                if linear_route(x.device.type, x.dtype, x.shape[-1],
+                                x.shape[-1]) == "kernel" else None)
         for lp in self.layer:
-            x = layer(lp, x, bias32, attn_rate, gen)
+            x = layer(lp, x, bias32, attn_rate, gen, rows)
         return x
 
 

@@ -53,6 +53,22 @@
 // in a fixed order (then adds the bias): no atomics, so a result repeats bit
 // for bit from run to run.
 //
+// A row list (LIST): the encoder's rows are [B·S] tokens of which about
+// half are padding, and nothing reads a padded row's output. The wrapper
+// then hands a list built on the device from the key mask: rows[0] the
+// count of valid rows, rows[1 .. M] their positions first, ascending, then
+// the padded ones. Forward and dgrad gather A's rows through the list and
+// scatter C's rows back through it, and write zeros to the rows at list
+// positions ≥ count (a NaN there would reach valid rows through P·V with
+// P = 0); wgrad takes the list's first `count` rows as its k range. The
+// host never reads the count, so a captured step replays with each batch's
+// own list: the grid is sized for the whole M, and which block does which
+// tile over which k range follows the count through a plan the host made
+// for every count (plan[u] = (splits, stages a split) for u row tiles of
+// 128, or for wgrad u stages of 32); a block with no work exits. The plan
+// at count = M is the no-list plan, so an all-valid list gives the no-list
+// bits. The instantiations without a list compile to the code they had.
+//
 // The experts of an MoE layer (ops/expert_linear.py) take the same tile
 // (gemm_tile) in a second kernel, expert_gemm_tf32x3_kernel: one grid slice
 // an expert, whose rows (forward, dgrad) or k range (wgrad) are the
@@ -200,10 +216,14 @@ __device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo, int row, i
 // back only its own chunks, and a warp's copy is 512 contiguous bytes or
 // four 128-byte rows.
 //   K-major (X[row·ld + k]): chunk c is row p / 8 + 16c, k quad p % 8.
-//   Else (X[k·ld + row]): chunk c is k 8·(p / 32) + c, row quad p % 32.
-template <bool KMAJOR>
+//   Else (X[k·ld + row]): chunk c is k 8·(p / 32) + c, row quad p % 32;
+//   with GATHER, k is a position of the row list and the row read is
+//   order[k] (wgrad's x).
+template <bool KMAJOR, bool GATHER>
 __device__ __forceinline__ void copy_tile(float4* raw, const float* __restrict__ X, int ld,
-                                          int row0, int rows, int k0, int K, int p) {
+                                          int row0, int rows, int k0, int K, int p,
+                                          const int* __restrict__ order) {
+  static_assert(!(KMAJOR && GATHER), "a list gathers the k of an M-major operand only");
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     int row, k;
@@ -213,7 +233,8 @@ __device__ __forceinline__ void copy_tile(float4* raw, const float* __restrict__
       src = X + (size_t)row * ld + k;
     } else {
       row = row0 + 4 * (p & 31); k = k0 + 8 * (p >> 5) + c;
-      src = X + (size_t)k * ld + row;
+      const int kr = GATHER ? (k < K ? __ldg(order + k) : 0) : k;
+      src = X + (size_t)kr * ld + row;
     }
     const bool ok = row < rows && k < K;
     cp_async16_zfill(raw + c * 128 + p, ok ? src : X, ok);
@@ -222,10 +243,13 @@ __device__ __forceinline__ void copy_tile(float4* raw, const float* __restrict__
 
 // A's 128 × 32 tile of a stage, fp32, copied (cp.async, zero past the
 // matrix) into its padded ALayout rows; a warp's copy is 512 contiguous
-// bytes or four 128-byte rows.
-template <bool A_K>
+// bytes or four 128-byte rows. With GATHER, m (K-major: forward, dgrad) or
+// k (else: wgrad) is a position of the row list: a K-major row is read from
+// a_row[i], the thread's rows looked up once a tile, a k from order[k].
+template <bool A_K, bool GATHER>
 __device__ __forceinline__ void copy_a(float* dst, const float* __restrict__ A, int lda,
-                                       int m0, int M, int k0, int K, int p) {
+                                       int m0, int M, int k0, int K, int p,
+                                       const int* __restrict__ order, const int (&a_row)[8]) {
   using L = ALayout<A_K>;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -235,10 +259,12 @@ __device__ __forceinline__ void copy_a(float* dst, const float* __restrict__ A, 
     float* to;
     if (A_K) {
       m = m0 + (c >> 3); k = k0 + 4 * (c & 7);
-      src = A + (size_t)m * lda + k; to = dst + (c >> 3) * L::kLd + 4 * (c & 7);
+      src = A + (size_t)(GATHER ? a_row[i] : m) * lda + k;
+      to = dst + (c >> 3) * L::kLd + 4 * (c & 7);
     } else {
       k = k0 + (c >> 5); m = m0 + 4 * (c & 31);
-      src = A + (size_t)k * lda + m; to = dst + (c >> 5) * L::kLd + 4 * (c & 31);
+      const int kr = GATHER ? (k < K ? __ldg(order + k) : 0) : k;
+      src = A + (size_t)kr * lda + m; to = dst + (c >> 5) * L::kLd + 4 * (c & 31);
     }
     const bool ok = m < M && k < K;
     cp_async16_zfill(to, ok ? src : A, ok);
@@ -286,13 +312,21 @@ __device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo, const float
 // One block's 128 × 128 tile at (m0, n0) of C[M][N] = Σ_k A(m, k)·B(n, k)
 // (+ bias[n]) over the nk stages of 32 k from stage kt0, written to `out`
 // (row stride N). The body of both kernels below.
-template <bool A_K, bool B_K>
+// LIST: `order` is the row list past its count. A K-major A (forward,
+// dgrad) reads its row m < M (M the count) from order[m]; with `scatter`
+// (= order) the tile's row at list position m < rows_out is written to
+// out's row order[m], as zeros where m ≥ M; without it, out's row m for
+// m < M (a split's partial). Else (wgrad) the k < K (the count) of A and B
+// read row order[k].
+template <bool A_K, bool B_K, bool LIST = false>
 __device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
                                           const float* __restrict__ B,
                                           const float* __restrict__ bias,
                                           float* __restrict__ out, int M, int N, int K,
                                           int lda, int ldb, int m0, int n0, int kt0,
-                                          int nk) {
+                                          int nk, const int* __restrict__ order = nullptr,
+                                          const int* __restrict__ scatter = nullptr,
+                                          int rows_out = 0) {
   using L = ALayout<A_K>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (mma::smem_addr(smem_raw) & 1023)) & 1023);
@@ -311,13 +345,24 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
 
   if (threadIdx.x < 128) {  // producer warpgroup
     const int p = threadIdx.x;
+    // a K-major A's rows are the same in every stage: looked up once
+    int a_row[8] = {};
+    if constexpr (LIST && A_K) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + (p >> 3) + 16 * i;
+        a_row[i] = m < M ? __ldg(order + m) : 0;
+      }
+    }
     // one cp.async group a stage (A into its ring, B raw), kLead ahead of
     // the split; an empty group past the end keeps the count
     auto issue = [&](int i) {
       if (i < nk) {
         const int k0 = (kt0 + i) * kBK;
-        copy_a<A_K>(a_ring + (i % kRing) * L::kFloats, A, lda, m0, M, k0, K, p);
-        copy_tile<B_K>(b_raw + (i % kRing) * 8 * 128, B, ldb, n0, N, k0, K, p);
+        copy_a<A_K, LIST>(a_ring + (i % kRing) * L::kFloats, A, lda, m0, M, k0, K, p, order,
+                          a_row);
+        copy_tile<B_K, LIST && !A_K>(b_raw + (i % kRing) * 8 * 128, B, ldb, n0, N, k0, K, p,
+                                     order);
       }
       mma::cp_async_commit();
     };
@@ -390,6 +435,36 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
   }
 
   // epilogue
+  if constexpr (LIST && A_K) {
+    if (scatter != nullptr) {
+      // the thread's two rows, by list position: written to order[pos], or
+      // zeros past the count
+      int to[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pos = m0 + r + 8 * h;
+        to[h] = pos < rows_out ? __ldg(scatter + pos) : -1;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col >= N) continue;
+        float b0 = 0.f, b1 = 0.f;
+        if (bias != nullptr) { b0 = bias[col]; b1 = bias[col + 1]; }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (to[h] < 0) continue;
+          float2 o = make_float2(0.f, 0.f);
+          if (m0 + r + 8 * h < M) {
+            o = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+            if (bias != nullptr) { o.x += b0; o.y += b1; }
+          }
+          *reinterpret_cast<float2*>(out + (size_t)to[h] * N + col) = o;
+        }
+      }
+      return;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = n0 + 8 * j + 2 * t;
@@ -407,16 +482,73 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
   }
 }
 
-template <bool A_K, bool B_K>
+// zeros to the 128 × 128 tile at list positions m0.., columns n0.. of
+// C[M][N], each row written at its listed row order[m]
+__device__ __forceinline__ void zero_tile(float* __restrict__ C, int M, int N,
+                                          const int* __restrict__ order, int m0, int n0) {
+  for (int e = threadIdx.x; e < kBM * (kBN / 4); e += kThreads) {
+    const int m = m0 + e / (kBN / 4), col = n0 + 4 * (e % (kBN / 4));
+    if (m < M && col < N)
+      *reinterpret_cast<float4*>(C + (size_t)__ldg(order + m) * N + col) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Without a list: tile (blockIdx.y, blockIdx.x), split blockIdx.z, whose
+// partials go to slice blockIdx.z of the workspace C.
+// LIST: a 1-D grid; rows[0] the count, rows + 1 the order; plan[u] =
+// (splits, stages a split) for u units of the count (row tiles where A is
+// K-major, else stages). One split: block b is tile (b / tiles_n,
+// b % tiles_n) of C, zeros where the tile lies past the count. More: block
+// b is split b / active of tile b % active of the `active` tiles the count
+// covers, its partial in work[split] (by list position).
+template <bool A_K, bool B_K, bool LIST>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    const float* __restrict__ bias, float* __restrict__ C, int M, int N,
-                   int K, int lda, int ldb, int kt_per_split) {
-  const int kt0 = blockIdx.z * kt_per_split;
-  const int nk = max(0, min((K + kBK - 1) / kBK - kt0, kt_per_split));
-  // split partials go to slice blockIdx.z of the workspace
-  gemm_tile<A_K, B_K>(A, B, bias, C + (size_t)blockIdx.z * M * N, M, N, K, lda, ldb,
-                      blockIdx.y * kBM, blockIdx.x * kBN, kt0, nk);
+                   int K, int lda, int ldb, int kt_per_split, float* __restrict__ work,
+                   const int* __restrict__ rows, const int2* __restrict__ plan) {
+  if constexpr (!LIST) {
+    const int kt0 = blockIdx.z * kt_per_split;
+    const int nk = max(0, min((K + kBK - 1) / kBK - kt0, kt_per_split));
+    // split partials go to slice blockIdx.z of the workspace
+    gemm_tile<A_K, B_K>(A, B, bias, C + (size_t)blockIdx.z * M * N, M, N, K, lda, ldb,
+                        blockIdx.y * kBM, blockIdx.x * kBN, kt0, nk);
+  } else {
+    const int count = __ldg(rows), b = blockIdx.x;
+    const int* order = rows + 1;
+    const int tiles_n = (N + kBN - 1) / kBN;
+    if constexpr (A_K) {  // forward, dgrad: the list's positions are C's rows
+      const int2 pl = __ldg(plan + (count + kBM - 1) / kBM);
+      const int stages = (K + kBK - 1) / kBK;
+      if (pl.x == 1) {
+        if (b >= ((M + kBM - 1) / kBM) * tiles_n) return;
+        const int m0 = (b / tiles_n) * kBM, n0 = (b % tiles_n) * kBN;
+        if (m0 >= count) {
+          zero_tile(C, M, N, order, m0, n0);
+          return;
+        }
+        gemm_tile<A_K, B_K, true>(A, B, bias, C, count, N, K, lda, ldb, m0, n0, 0, stages,
+                                  order, order, M);
+      } else {
+        const int active = ((count + kBM - 1) / kBM) * tiles_n;
+        if (b >= active * pl.x) return;
+        const int z = b / active, j = b % active, kt0 = z * pl.y;
+        gemm_tile<A_K, B_K, true>(A, B, nullptr, work + (size_t)z * M * N, count, N, K, lda,
+                                  ldb, (j / tiles_n) * kBM, (j % tiles_n) * kBN, kt0,
+                                  max(0, min(stages - kt0, pl.y)), order);
+      }
+    } else {  // wgrad: the list's positions are the k range
+      const int stages = (count + kBK - 1) / kBK;
+      const int2 pl = __ldg(plan + stages);
+      const int tiles = ((M + kBM - 1) / kBM) * tiles_n;
+      const int z = b / tiles, j = b % tiles, kt0 = z * pl.y;
+      if (z >= pl.x) return;
+      gemm_tile<A_K, B_K, true>(A, B, nullptr, pl.x > 1 ? work + (size_t)z * M * N : C, M, N,
+                                count, lda, ldb, (j / tiles_n) * kBM, (j % tiles_n) * kBN, kt0,
+                                max(0, min(stages - kt0, pl.y)), order);
+    }
+  }
 }
 
 // The experts' products: one group of rows a grid slice z = the expert,
@@ -452,12 +584,34 @@ expert_gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__
   }
 }
 
-// C = Σ_z work[z] (+ bias), z in order; four elements a thread
+// C = Σ_z work[z] (+ bias), z in order; four elements a thread.
+// LIST: the splits are the plan's for the count (none: the GEMM wrote C,
+// and this launch does nothing), `unit` the rows (or k) of a plan step;
+// with `scatter` the partials' rows are list positions: the sum of position
+// m < count goes to C's row order[m], zeros past the count.
+template <bool LIST>
 __global__ void gemm_splitk_sum_kernel(const float4* __restrict__ work,
                                        const float4* __restrict__ bias, float4* __restrict__ C,
-                                       long long n4, int n_quads, int splits) {
+                                       long long n4, int n_quads, int splits,
+                                       const int* __restrict__ rows,
+                                       const int2* __restrict__ plan, int unit, int scatter) {
+  int count = 0;
+  if (LIST) {
+    count = __ldg(rows);
+    splits = __ldg(plan + (count + unit - 1) / unit).x;
+    if (splits == 1) return;
+  }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
+  long long to = i;
+  if (LIST && scatter) {
+    const long long m = i / n_quads;
+    to = (long long)__ldg(rows + 1 + m) * n_quads + i % n_quads;
+    if (m >= count) {
+      C[to] = make_float4(0.f, 0.f, 0.f, 0.f);
+      return;
+    }
+  }
   float4 acc = work[i];
   for (int z = 1; z < splits; ++z) {
     const float4 w = work[(long long)z * n4 + i];
@@ -467,23 +621,26 @@ __global__ void gemm_splitk_sum_kernel(const float4* __restrict__ work,
     const float4 b = bias[i % n_quads];
     acc.x += b.x; acc.y += b.y; acc.z += b.z; acc.w += b.w;
   }
-  C[i] = acc;
+  C[to] = acc;
 }
 
-template <bool A_K, bool B_K>
+// without a list the grid is (N tiles, M tiles, splits); with one,
+// `blocks` along x (the largest plan's)
+template <bool A_K, bool B_K, bool LIST>
 int launch(const float* A, const float* B, const float* bias, float* C, int M, int N, int K,
-           int lda, int ldb, int kt_per_split, int splits, cudaStream_t stream) {
+           int lda, int ldb, int kt_per_split, int splits, float* work, const int* rows,
+           const int2* plan, int blocks, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gemm_tf32x3_kernel<A_K, B_K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_tf32x3_kernel<A_K, B_K, LIST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         ALayout<A_K>::kSmem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  gemm_tf32x3_kernel<A_K, B_K><<<grid, kThreads, ALayout<A_K>::kSmem, stream>>>(
-      A, B, bias, C, M, N, K, lda, ldb, kt_per_split);
+  const dim3 grid = LIST ? dim3(blocks) : dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  gemm_tf32x3_kernel<A_K, B_K, LIST><<<grid, kThreads, ALayout<A_K>::kSmem, stream>>>(
+      A, B, bias, C, M, N, K, lda, ldb, kt_per_split, work, rows, plan);
   return (int)cudaGetLastError();
 }
 
@@ -533,19 +690,64 @@ int gemm_tf32x3(int a_kmajor, int b_kmajor, const void* A, const void* B, const 
   const float* bias_k = split ? nullptr : static_cast<const float*>(bias);
   int err;
   if (a_kmajor && b_kmajor)
-    err = launch<true, true>(a, b, bias_k, out, M, N, K, lda, ldb, kt_per_split, splits, s);
+    err = launch<true, true, false>(a, b, bias_k, out, M, N, K, lda, ldb, kt_per_split, splits,
+                                    nullptr, nullptr, nullptr, 0, s);
   else if (a_kmajor && !b_kmajor)
-    err = launch<true, false>(a, b, bias_k, out, M, N, K, lda, ldb, kt_per_split, splits, s);
+    err = launch<true, false, false>(a, b, bias_k, out, M, N, K, lda, ldb, kt_per_split, splits,
+                                     nullptr, nullptr, nullptr, 0, s);
   else if (!a_kmajor && !b_kmajor)
-    err = launch<false, false>(a, b, bias_k, out, M, N, K, lda, ldb, kt_per_split, splits, s);
+    err = launch<false, false, false>(a, b, bias_k, out, M, N, K, lda, ldb, kt_per_split,
+                                      splits, nullptr, nullptr, nullptr, 0, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != 0 || !split) return err;
   const long long n4 = (long long)M * N / 4;
   const int threads = 256;
-  gemm_splitk_sum_kernel<<<(unsigned)((n4 + threads - 1) / threads), threads, 0, s>>>(
+  gemm_splitk_sum_kernel<false><<<(unsigned)((n4 + threads - 1) / threads), threads, 0, s>>>(
       static_cast<const float4*>(work), static_cast<const float4*>(bias),
-      static_cast<float4*>(C), n4, N / 4, splits);
+      static_cast<float4*>(C), n4, N / 4, splits, nullptr, nullptr, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+// The same product over a row list (int32 on the device: rows[0] the count
+// of valid rows, rows[1 .. L] the list, L = M where A is K-major, else K).
+// a_kmajor (forward, dgrad: A(m, k) = A[m·lda + k], then b_kmajor as
+// above): C's rows are the list's, A's read and C's written through it, the
+// rows past the count zeros. Else (wgrad, b_kmajor 0): the k range is the
+// list's first `count` rows of A and B. plan[u] (int2, on the device) is
+// (splits, stages a split) for u row tiles of 128 (a_kmajor) or u stages
+// of 32 of the count; `blocks` the grid (the most any plan needs);
+// `max_splits` > 1 has a second launch sum the partials from work (room for
+// max_splits slices of M × N) where the count's plan splits. Returns
+// cudaGetLastError() after each launch.
+int gemm_tf32x3_list(int a_kmajor, int b_kmajor, const void* A, const void* B,
+                     const void* bias, void* C, void* work, int M, int N, int K, int lda,
+                     int ldb, const void* rows, const void* plan, int blocks, int max_splits,
+                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  const float* bi = static_cast<const float*>(bias);
+  float* c = static_cast<float*>(C);
+  float* w = static_cast<float*>(work);
+  const int* r = static_cast<const int*>(rows);
+  const int2* pl = static_cast<const int2*>(plan);
+  int err;
+  if (a_kmajor && b_kmajor)
+    err = launch<true, true, true>(a, b, bi, c, M, N, K, lda, ldb, 0, 0, w, r, pl, blocks, s);
+  else if (a_kmajor && !b_kmajor)
+    err = launch<true, false, true>(a, b, bi, c, M, N, K, lda, ldb, 0, 0, w, r, pl, blocks, s);
+  else if (!a_kmajor && !b_kmajor && bias == nullptr)
+    err = launch<false, false, true>(a, b, nullptr, c, M, N, K, lda, ldb, 0, 0, w, r, pl, blocks,
+                                     s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != 0 || max_splits < 2) return err;
+  const long long n4 = (long long)M * N / 4;
+  const int threads = 256;
+  gemm_splitk_sum_kernel<true><<<(unsigned)((n4 + threads - 1) / threads), threads, 0, s>>>(
+      static_cast<const float4*>(work), static_cast<const float4*>(bias),
+      static_cast<float4*>(C), n4, N / 4, 0, r, pl, a_kmajor ? kBM : kBK, a_kmajor);
   return (int)cudaGetLastError();
 }
 

@@ -9,11 +9,16 @@ and wgrad, and one TF32 product does not; the route (CPU: the plain
 version, bfloat16 on a card: ``F.linear``, float32 on a card: the kernel,
 which raises on shapes it cannot take); the operator's autograd formula
 against ``F.linear`` and the add in float64; ``_DOTS`` and remat's "dots"
-policy keep the operator's output; the split plan. On a card (marker
-``card``; ``python -m pytest --noconftest -m card
+policy keep the operator's output; the split plan; the row list (valid rows
+first, the count, the counter) and the plan of every count it can hold. On
+a card (marker ``card``; ``python -m pytest --noconftest -m card
 tests/test_torch_linear.py`` there): the kernel against the plain version
 and float64 at UNITER-base's and UNITER-large's shapes, bit for bit from
-run to run. This file imports no JAX."""
+run to run; over a row list (≈ 49 % valid, all valid, one row) the
+listed rows against float64, the others zero, the forward's listed rows
+equal to the no-list launch's wherever the plans agree (every product with
+an all-valid list), and one captured graph replayed over two masks. This
+file imports no JAX."""
 import functools
 import math
 
@@ -235,11 +240,11 @@ def test_linear_takes_the_op_with_autograd_where_it_routes_there(
     for gt, wt in zip(got, (x.grad, w.grad, b.grad)):
         torch.testing.assert_close(gt, wt, rtol=0, atol=1e-12)
     direct = []
-    monkeypatch.setattr(L, "_forward_cuda",
-                        lambda *a: direct.append(a) or F.linear(*a))
+    monkeypatch.setattr(L, "_forward_cuda", lambda x, w, b, rows: direct.append(
+        rows) or F.linear(x, w, b))
     with torch.no_grad():
         assert torch.equal(L.linear(x, w, b), F.linear(x, w, b))
-    assert len(direct) == 1 and calls["forward"] == 1
+    assert direct == [None] and calls["forward"] == 1
 
 
 def test_dots_holds_the_op():
@@ -300,6 +305,76 @@ def test_split_plan_fills_the_card():
         assert L.k_splits(2560, n, k)[0] == 1
     assert L.k_splits(768, 768, 2560)[0] > 1
     assert L.k_splits(2560, 1024, 4096)[0] > 1
+
+
+# ------------------------------------------------------------ the row list
+
+def _key_bias(mask):
+    """The encoder's additive key bias of a ``[B, S]`` 0/1 mask."""
+    return ((1.0 - mask.float()) * U.NEG_INF)[:, None, None, :]
+
+
+ROW_MASKS = {
+    # [text | pad | regions | pad] of three memes
+    "gaps": torch.tensor([[1, 1, 1, 0, 0, 1, 1, 0],
+                          [1, 0, 0, 0, 1, 1, 1, 1],
+                          [1, 1, 1, 1, 1, 0, 0, 0]]),
+    "all_valid": torch.ones(2, 5, dtype=torch.int64),
+    "cls_only": torch.tensor([[1, 0, 0, 0, 0, 0], [1, 0, 0, 0, 0, 0]]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROW_MASKS))
+def test_row_list_puts_the_valid_rows_first(name):
+    """``row_list``: the count, then the valid rows ascending, then the
+    padded ones ascending, as int32; the counter adds the count and the
+    rows offered."""
+    mask = ROW_MASKS[name]
+    flat = mask.reshape(-1)
+    valid = [i for i in range(flat.numel()) if flat[i]]
+    padded = [i for i in range(flat.numel()) if not flat[i]]
+    before = L.listed_rows(torch.device("cpu")).clone()
+    rows = L.row_list(_key_bias(mask))
+    assert rows.dtype == torch.int32
+    assert rows.tolist() == [len(valid)] + valid + padded
+    assert (L.listed_rows(torch.device("cpu")) - before).tolist() == [
+        len(valid), flat.numel()]
+
+
+@pytest.mark.parametrize("rows,cols,depth", [
+    (2560, 768, 768), (2560, 3072, 768), (2560, 768, 3072),
+    (2560, 1024, 1024), (2560, 4096, 1024), (2560, 1024, 4096),
+    (300, 200, 100)])
+@pytest.mark.parametrize("product", PRODUCTS)
+def test_list_plan_holds_every_count(product, rows, cols, depth):
+    """The plan of a listed product for each count: at the whole list the
+    no-list plan, at each other count the plan of the product it leaves
+    (never an empty split), nothing at count 0, and a grid that every
+    plan's blocks fit."""
+    # (rows, cols, depth) of the product and whether the list is its rows
+    shape, listed = {
+        "forward": ((rows, cols, depth), True),
+        "dgrad": ((rows, depth, cols), True),
+        "wgrad": ((cols, depth, rows), False)}[product]
+    m, n, k = shape
+    plan, blocks, most = L.list_plan(m, n, k, listed)
+    unit = L.BLOCK_M if listed else L.BLOCK_K
+    length = m if listed else k
+    assert len(plan) == math.ceil(length / unit) + 1
+    assert plan[-1] == L.k_splits(m, n, k)
+    assert plan[0][0] == 1 and (plan[0][1] == 0) == (not listed)
+    tiles_n = math.ceil(n / L.BLOCK_N)
+    for u, (splits, per) in enumerate(plan[1:], start=1):
+        covered = (min(u * unit, m) if listed else m, n,
+                   k if listed else u * unit)
+        assert (splits, per) == L.k_splits(*covered)
+        stages = math.ceil(covered[2] / L.BLOCK_K)
+        assert (splits - 1) * per < stages <= splits * per
+        tiles = (u if listed else math.ceil(m / L.BLOCK_M)) * tiles_n
+        assert tiles * splits <= blocks
+    if listed:
+        assert math.ceil(m / L.BLOCK_M) * tiles_n <= blocks
+    assert most == max(s for s, _ in plan)
 
 
 # ------------------------------------------------------------------ the card
@@ -381,3 +456,127 @@ def test_the_op_under_autograd_on_the_card(card):
         assert torch.equal(y0, L.linear(x, w, zero))
         assert torch.equal(x.grad, L.dgrad(dy2, w).view(x.shape))
         assert torch.equal(w.grad, L.wgrad(dy2, x.reshape(-1, 768)))
+
+
+# the encoder's three product shapes of UNITER-base and UNITER-large, M 2 560
+LIST_SHAPES = CARD_SHAPES[:6]
+LISTS = ("traffic", "all_valid", "one_row")
+
+
+def _card_mask(kind, m, device):
+    """A ``[m / 160, 160]`` key mask: ``traffic`` as the ``ft_fp32``
+    traffic's memes ([60 text | 100 regions], text log-normal with a median
+    of 20 over 4-60, regions uniform over 10-100; ≈ 49 % valid), all valid,
+    or the first row alone."""
+    memes = m // 160
+    if kind == "all_valid":
+        return torch.ones(memes, 160, dtype=torch.int64, device=device)
+    mask = torch.zeros(memes, 160, dtype=torch.int64)
+    if kind == "one_row":
+        mask[0, 0] = 1
+    else:
+        g = torch.Generator().manual_seed(m)
+        text = torch.empty(memes).log_normal_(math.log(20), 0.5,
+                                              generator=g)
+        text = text.round().clamp(4, 60).long()
+        regions = torch.randint(10, 101, (memes,), generator=g)
+        for i in range(memes):
+            mask[i, :text[i]] = 1
+            mask[i, 60:60 + regions[i]] = 1
+    return mask.to(device)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", LISTS)
+@pytest.mark.parametrize("m,n,k", LIST_SHAPES)
+def test_listed_products_on_the_card(card, m, n, k, kind):
+    """Forward, dgrad and wgrad over a row list: the listed rows within 2×
+    the plain fp32 products' error against float64, the forward's and
+    dgrad's other rows exactly zero; the forward's listed rows the no-list
+    launch's bits wherever the count's plan is the no-list plan, and with
+    an all-valid list all three products' bits. A single listed row is too
+    few outputs for one maximum to stand against another: there the
+    forward's and dgrad's row is held to 2× the no-list launch's error on
+    it too, and wgrad, one product an element, to 3×TF32's own bound,
+    3·2⁻²¹ of |dy|ᵀ·|x| (each low half read as TF32, and lo·lo dropped)."""
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    x = torch.randn(m, k, generator=g, device=card)
+    w = torch.randn(n, k, generator=g, device=card) / math.sqrt(k)
+    b = torch.randn(n, generator=g, device=card)
+    dy = torch.randn(m, n, generator=g, device=card)
+    mask = _card_mask(kind, m, card).reshape(-1)
+    rows = L.row_list(_key_bias(mask.view(1, -1)))
+    on = mask.bool()
+    count = int(on.sum())
+    assert int(rows[0]) == count
+    xs, dys = x[on].double(), dy[on].double()
+    cases = {
+        "forward": (L._forward_cuda(x, w, b, rows), L._forward_cuda(x, w, b),
+                    x[on] @ w.t() + b, xs @ w.double().t() + b.double()),
+        "dgrad": (L.dgrad(dy, w, rows), L.dgrad(dy, w), dy[on] @ w,
+                  dys @ w.double()),
+        "wgrad": (L.wgrad(dy, x, rows), L.wgrad(dy, x), dy[on].t() @ x[on],
+                  dys.t() @ xs)}
+    torch.cuda.synchronize()
+    for name, (got, nolist, plain, ref) in cases.items():
+        listed = got if name == "wgrad" else got[on]
+        err = (listed.double() - ref).abs().max().item()
+        plain_err = (plain.double() - ref).abs().max().item()
+        if count == 1 and name == "wgrad":
+            plain_err = max(plain_err, 3 * 2.0 ** -21 * float(
+                (dys.abs().t() @ xs.abs()).max()))
+        elif count == 1:
+            plain_err = max(plain_err,
+                            (nolist[on].double() - ref).abs().max().item())
+        assert err <= 2.0 * max(plain_err, 1e-30), (name, err, plain_err)
+        if name != "wgrad":
+            assert torch.equal(got[~on], torch.zeros_like(got[~on])), name
+        if kind == "all_valid":
+            assert torch.equal(got.view(torch.int32),
+                               nolist.view(torch.int32)), name
+    plan = L.list_plan(m, n, k, True)[0]
+    if plan[math.ceil(count / L.BLOCK_M)] == L.k_splits(m, n, k):
+        got, nolist = cases["forward"][:2]
+        assert torch.equal(got[on].view(torch.int32),
+                           nolist[on].view(torch.int32))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("m,n,k", [(2560, 768, 768), (2560, 1024, 1024)])
+def test_a_captured_graph_replays_each_masks_list(card, m, n, k):
+    """The list's build and the three listed products captured once in a
+    CUDA graph, replayed over two masks (of different counts and plans):
+    each replay gives the eager launches' bits for its mask, and the
+    counter adds each mask's count."""
+    g = torch.Generator(device=card).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=card)
+    w = torch.randn(n, k, generator=g, device=card) / math.sqrt(k)
+    b = torch.randn(n, generator=g, device=card)
+    dy = torch.randn(m, n, generator=g, device=card)
+    masks = [_card_mask("traffic", m, card).view(1, -1),
+             _card_mask("traffic", m, card).view(1, -1)]
+    masks[1][:, m // 2:] = 0  # fewer rows: another count, another plan
+    bias = _key_bias(masks[0])
+
+    def products():
+        rows = L.row_list(bias)
+        return (L._forward_cuda(x, w, b, rows), L.dgrad(dy, w, rows),
+                L.wgrad(dy, x, rows))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        products()  # the plan tables and the counter, before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = products()
+    counter = L.listed_rows(card)
+    for mask in masks:
+        bias.copy_(_key_bias(mask))
+        before = counter.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (counter - before).tolist() == [int(mask.sum()), m]
+        for got, want in zip(captured, products()):
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
